@@ -1,0 +1,94 @@
+"""Warp fields: camera <-> equirect strips (host float64 numpy).
+
+Port of the renderer's half of ``surround360_tpu/ops/warp.py`` (reference:
+surround360_render/source/render/ImageWarper.{h,cpp}). Warp fields are
+(2, H, W) float32 coords (x, y) in source pixel units, integer = pixel
+center (the reference's ``pixel - 0.5`` correction, ImageWarper.cpp:166).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..geometry import camera as cam_mod
+from ..geometry.camera import Camera
+
+__all__ = [
+    "approximate_fov",
+    "rig_fov",
+    "spherical_warp_for_camera",
+    "side_cam_spherical_warp",
+]
+
+
+def approximate_fov(cam: Camera, vertical: bool) -> float:
+    """Angle from forward to the principal row/column edge rays
+    (TestRenderStereoPanorama.cpp:75-88)."""
+    principal = np.asarray(cam.principal, dtype=np.float64)
+    a = principal.copy()
+    b = principal.copy()
+    res = np.asarray(cam.resolution, dtype=np.float64)
+    if vertical:
+        a[1] = 0.0
+        b[1] = res[1]
+    else:
+        a[0] = 0.0
+        b[0] = res[0]
+    fwd = np.asarray(cam.forward, dtype=np.float64)
+    da = cam_mod.pixel_to_rig_direction(cam, a)
+    db = cam_mod.pixel_to_rig_direction(cam, b)
+    return float(np.arccos(max(np.dot(da, fwd), np.dot(db, fwd))))
+
+
+def rig_fov(cams: list[Camera], vertical: bool) -> float:
+    """Max approximate fov over cameras (TestRenderStereoPanorama.cpp:91-97)."""
+    return max(approximate_fov(c, vertical) for c in cams)
+
+
+def spherical_warp_for_camera(
+    cam: Camera,
+    out_hw: tuple[int, int],
+    left_angle: float,
+    right_angle: float,
+    top_angle: float,
+    bottom_angle: float,
+) -> np.ndarray:
+    """Equirect-strip -> camera warp field (2, H, W) float32
+    (bicubicRemapToSpherical, ImageWarper.cpp:143-174)."""
+    H, W = out_hw
+    xfrac = (np.arange(W, dtype=np.float64) + 0.5) / W
+    yfrac = (np.arange(H, dtype=np.float64) + 0.5) / H
+    x_angle = (1.0 - xfrac) * left_angle + xfrac * right_angle
+    y_angle = (1.0 - yfrac) * top_angle + yfrac * bottom_angle
+    ya, xa = np.meshgrid(y_angle, x_angle, indexing="ij")
+    unit = np.stack(
+        [np.cos(ya) * np.cos(xa), np.cos(ya) * np.sin(xa), np.sin(ya)], axis=-1
+    )
+    pix = cam_mod.world_to_pixel(cam, unit * cam_mod.NEAR_INFINITY)
+    coords = np.moveaxis(pix, -1, 0) - 0.5
+    return coords.astype(np.float32)
+
+
+def side_cam_spherical_warp(
+    cam: Camera,
+    cam_index: int,
+    num_cams: int,
+    eqr_wh: tuple[int, int],
+    h_radians: float,
+    v_radians: float,
+) -> tuple[np.ndarray, tuple[int, int]]:
+    """Warp + strip size for one side camera's spherical projection
+    (projectSphericalCamImages, TestRenderStereoPanorama.cpp:138-175)."""
+    eqr_w, eqr_h = eqr_wh
+    strip_h = int(eqr_h * v_radians / np.pi)
+    strip_w = int(eqr_w * h_radians / (2.0 * np.pi))
+    direction = -float(cam_index) / num_cams * 2.0 * np.pi
+    warp = spherical_warp_for_camera(
+        cam,
+        (strip_h, strip_w),
+        direction + h_radians / 2.0,
+        direction - h_radians / 2.0,
+        v_radians / 2.0,
+        -v_radians / 2.0,
+    )
+    return warp, (strip_h, strip_w)

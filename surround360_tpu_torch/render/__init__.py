@@ -1,0 +1,8 @@
+from .panorama import (  # noqa: F401
+    RenderConfig,
+    RenderContext,
+    build_render_context,
+    render_frame,
+    state_from_numpy,
+    state_to_numpy,
+)

@@ -1,0 +1,170 @@
+"""Package boundary of the PyTorch port: no JAX, no toolchain at import,
+and no silent fallback from the CUDA kernel to its twin."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from surround360_tpu_torch.ops import fused_window as fw
+
+SLICE_MODULES = [
+    "surround360_tpu_torch",
+    "surround360_tpu_torch.utils.math_util",
+    "surround360_tpu_torch.geometry.camera",
+    "surround360_tpu_torch.geometry.rig",
+    "surround360_tpu_torch.ops.warp",
+    "surround360_tpu_torch.capture.simulator",
+    "surround360_tpu_torch.ops.resize",
+    "surround360_tpu_torch.ops.filters",
+    "surround360_tpu_torch.ops.compositing",
+    "surround360_tpu_torch.ops.fused_window",
+    "surround360_tpu_torch.ops.remap",
+    "surround360_tpu_torch.ops.window_sampler",
+    "surround360_tpu_torch.flow.pixflow",
+    "surround360_tpu_torch.views.novel_view",
+    "surround360_tpu_torch.render.panorama",
+    "surround360_tpu_torch.cli.render_video",
+]
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=REPO, **(env_extra or {}))
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=120,
+    )
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'surround360_tpu.')) or m == 'surround360_tpu')\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kernel_module_imports_without_toolchain(tmp_path):
+    """No nvcc on PATH, no CUDA_HOME, no triton: the kernel module still
+    imports (the toolchain is only looked up when a kernel launches)."""
+    code = (
+        "import sys\n"
+        "import surround360_tpu_torch.ops.fused_window as fw\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert fw._lib is None\n"
+    )
+    proc = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
+    assert proc.returncode == 0, proc.stderr
+
+
+class _FakeCudaTensor(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to drive the wrapper's
+    CUDA branch on a machine without a GPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _small_inputs():
+    rng = np.random.default_rng(0)
+    padded = rng.random((1, 2, 16, 32), dtype=np.float32)
+    sy = np.zeros((2, 1), np.int32)
+    sx = np.zeros((2, 1), np.int32)
+    xt = rng.uniform(0, 30, (2, 1, 8)).astype(np.float32)
+    yt = rng.uniform(0, 14, (2, 1, 8)).astype(np.float32)
+    kw = dict(bh=16, bw=32, pad_y=0, pad_x=0, n_y=16, n_x=32)
+    return [torch.from_numpy(a) for a in (padded, sy, sx, xt, yt)], kw
+
+
+def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
+    """A CUDA tensor must launch the kernel or raise: without nvcc and
+    without a built library the wrapper raises, and the twin never runs."""
+    monkeypatch.setattr(fw, "_lib", None)
+    monkeypatch.setattr(fw, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+    def no_twin(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    monkeypatch.setattr(fw, "fused_window_sample_reference", no_twin)
+    monkeypatch.setattr(fw, "window_gather", no_twin)
+    arrays, kw = _small_inputs()
+    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
+    launches = fw.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fw.fused_window_sample(*fake, **kw)
+    assert fw.LAUNCHES == launches
+
+
+def test_other_devices_raise(monkeypatch):
+    arrays, kw = _small_inputs()
+    meta = [a.to("meta") for a in arrays]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fw.fused_window_sample(*meta, **kw)
+
+
+def test_cpu_tensor_uses_twin_and_counts_no_launch():
+    arrays, kw = _small_inputs()
+    launches = fw.LAUNCHES
+    out = fw.fused_window_sample(*arrays, **kw, site="test")
+    ref = fw.fused_window_sample_reference(*arrays, **kw)
+    assert out.shape == (2, 1, 2, 8)
+    assert torch.equal(out, ref)
+    assert fw.LAUNCHES == launches
+
+
+def test_wrapper_validates_inputs():
+    arrays, kw = _small_inputs()
+    bad = list(arrays)
+    bad[1] = bad[1].long()
+    with pytest.raises(ValueError, match="sy must be"):
+        fw.fused_window_sample(*bad, **kw)
+    with pytest.raises(ValueError, match="unknown interpolation"):
+        fw.fused_window_sample(*arrays, **kw, interpolation="nearest")
+
+
+@pytest.mark.gpu
+def test_kernel_matches_twin_on_gpu():
+    """The CUDA kernel against its twin on the card: every interpolation x
+    border mode, tight and plain windows, origins at the array edges, NaN
+    and far coordinates, a sample count that is no multiple of 32. Max-abs
+    2e-5: identical f32 tap math, only FMA contraction differs. Runs on a
+    GPU machine (see README); skips elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(0)
+    L, C, Hp, Wp, T, P = 3, 4, 48, 300, 5, 77
+    padded = rng.random((L, C, Hp, Wp), dtype=np.float32)
+    for interp in ("bicubic", "bilinear"):
+        for border in ("constant", "clamp"):
+            for base_bw in (None, 61):
+                bh, bw = 24, 128
+                wx = base_bw or bw
+                sy = rng.integers(0, Hp - bh + 1, (T, L)).astype(np.int32)
+                sx = rng.integers(0, Wp - wx + 1, (T, L)).astype(np.int32)
+                sy[0], sx[0] = 0, 0
+                sy[1], sx[1] = Hp - bh, Wp - wx
+                xt = (sx[..., None] + rng.uniform(-5, wx + 5, (T, L, P))).astype(np.float32)
+                yt = (sy[..., None] + rng.uniform(-5, bh + 5, (T, L, P))).astype(np.float32)
+                xt[2, :, :3] = [np.nan, 1e6, -1e6]
+                yt[3, :, :3] = [-1e6, np.nan, 1e6]
+                dev = [torch.from_numpy(a).cuda() for a in (padded, sy, sx, xt, yt)]
+                kw = dict(bh=bh, bw=bw, pad_y=4, pad_x=6, n_y=Hp - 8, n_x=Wp - 12,
+                          interpolation=interp, border=border, base_bw=base_bw)
+                got = fw.fused_window_sample(*dev, **kw)
+                torch.cuda.synchronize()
+                want = fw.fused_window_sample_reference(*dev, **kw)
+                assert bool(torch.isfinite(got).all())
+                assert float((got - want).abs().max()) <= 2e-5, (interp, border, base_bw)
