@@ -2,27 +2,47 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero before the
+Phases (each prints its lines; any failure exits non-zero before the
 final line):
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off (the reference is float32).
-2. build: builds the fused window kernel from
-   surround360_tpu_torch/csrc/ with nvcc into surround360_tpu_torch/_build/.
-3. kernel vs twin at small shapes: every interpolation x border
-   combination, tight and plain windows, origins at the array edges, NaN
-   and +-1e6 coordinates, a sample count that is no multiple of 32;
-   max-abs <= 2e-5.
+2. build: builds every kernel source under surround360_tpu_torch/csrc/
+   with nvcc, one process each, all started together, into
+   surround360_tpu_torch/_build/; one line per source.
+3. kernels vs twins at small shapes, max-abs <= 2e-5: K1 (every
+   interpolation x border, tight and plain windows); K2 (the same modes
+   with per-tile origins); K3 (the flow's offset sets at d = 8, 4, 2, 1,
+   clamp and constant borders, one x tile and several); all with origins
+   at the array edges, NaN and +-1e6 coordinates and a sample count that
+   is no multiple of 32.
 4. main path: the 6k quality preset (6300x3072 per eye from 2048 px
    cameras, 6144x6144 final), pixflow_tpu flows, both poles merged,
    sharpening and the final resize; frame 0, then frame 1 chained through
    frame 0's temporal state. Requires the output shape, finite values and
-   kernel launches at all four call sites; prints seconds and peak memory.
-5. main-path kernel vs twin: one recorded call per call site, rerun
-   through the plain PyTorch twin; max-abs <= 2e-5; kernel and twin ms.
+   K1 launches at its four call sites and none of K2; prints seconds,
+   peak memory and every kernel's launches.
+5. main-path K1 vs twin: the recorded call of each call site (the one
+   with the most samples), rerun through the plain PyTorch twin; max-abs
+   <= 2e-5; kernel and twin ms.
 6. quality: one more frame at the same geometry without sharpening or
    final resize; full-sphere PSNR per eye against the analytic reference
    must reach 40 dB.
+7. cli: the simulator's views written as 16-bit PNGs (frame 1 hard-links
+   frame 0), then the video CLI (render_video.main) at the 6k preset with
+   pixflow_tpu_offsets on the ring and the poles, saving its state:
+   requires K3 launches at both flow sites, none of K2, and finite
+   6144x6144 frames; prints seconds per frame, the loop's host stages
+   (PNG decode and encode, render, fetch), peak memory and every
+   kernel's launches; then frame 1 again, resumed from frame 0's state
+   pickle into another directory, within 1/255 of the chained frame 1.
+8. flow sites: at each flow site, for each offset set (d = 8, 4, 2, 1),
+   the recorded K3 call with the most samples (the finest pyramid level
+   that ranks with that set) against the twin (max-abs <= 2e-5, kernel
+   and twin ms); and K2 at the 6k side-flow level-0 geometry (the flow's
+   16-column tiles: tight-x, 13 folded candidates), a forced call that
+   no launch count includes.
+9. quality of a pixflow_tpu_offsets frame, as phase 6.
 
 Then the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -30,18 +50,35 @@ Then the kernels' JSON line, the card's name and power limit, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 TOL = 2e-5  # kernel vs twin: same f32 tap math, FMA contraction differs
 PSNR_MIN = 40.0  # the reference package's preset-quality target
 PRESET = "6k"
-SITES = ("side_projection", "novel_view", "fisheye_strip", "pole_warp")
-REPLACES = "surround360_tpu/ops/pallas_remap.py:640"
+K1_SITES = ("side_projection", "novel_view", "fisheye_strip", "pole_warp")
+FLOW_SITES = ("side_flow", "pole_flow")
+PALLAS = "surround360_tpu/ops/pallas_remap.py"
+REPLACES = {
+    "fused_window_sample": f"{PALLAS}:640",
+    "fused_window_folded": f"{PALLAS}:591 offsets=None",
+    "fused_window_offsets": f"{PALLAS}:591 offsets",
+}
+SOURCES = {
+    "fused_window_sample": "surround360_tpu_torch/csrc/fused_window_sample.cu",
+    "fused_window_folded": "surround360_tpu_torch/csrc/fused_window_folded.cu",
+    "fused_window_offsets": "surround360_tpu_torch/csrc/fused_window_folded.cu",
+}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "_smoke_cli")  # gitignored; removed at the end
 
 
 def log(msg: str) -> None:
@@ -84,55 +121,103 @@ def phase_device():
 def phase_build():
     from surround360_tpu_torch.ops import fused_window as fw
 
-    fw._load_library()
-    log(f"[2 build] fused_window_sample built in {fw.BUILD_SECONDS:.1f} s")
+    t0 = time.perf_counter()
+    seconds = fw.build_all()
+    for kernel in fw.KERNELS:
+        fw._load_library(kernel)
+    for source, secs in seconds.items():
+        log(f"[2 build] {source} built in {secs:.1f} s")
+    log(f"[2 build] all sources in {time.perf_counter() - t0:.1f} s (parallel)")
+
+
+def _edge_coords(rng, sy, sx, bh, wx, shape):
+    """Coordinates around each window (+-5 px past it), with NaN and
+    +-1e6 entries; sy, sx broadcast against shape[:-1]."""
+    xt = sx[..., None] + rng.uniform(-5, wx + 5, shape)
+    yt = sy[..., None] + rng.uniform(-5, bh + 5, shape)
+    xt, yt = xt.astype(np.float32), yt.astype(np.float32)
+    xt[2, :, :3] = [np.nan, 1e6, -1e6]
+    yt[3, :, :3] = [-1e6, np.nan, 1e6]
+    return xt, yt
 
 
 def _small_cases(rng):
-    """Kernel inputs covering the borders, window modes and edge cases."""
+    """(kernel, name, arrays, kwargs) covering the borders, window modes,
+    offset sets and edge cases of K1, K2 and K3."""
     L, C, Hp, Wp, T, P = 3, 4, 48, 300, 5, 77
     padded = rng.random((L, C, Hp, Wp), dtype=np.float32)
+    base = dict(pad_y=4, pad_x=6, n_y=Hp - 8, n_x=Wp - 12)
     for interp in ("bicubic", "bilinear"):
         for border in ("constant", "clamp"):
             for tight in (False, True):
                 bh = 24
                 bw, base_bw = (256, 61) if tight else (128, None)
                 wx = base_bw or bw
+                kw = dict(base, bh=bh, bw=bw, interpolation=interp,
+                          border=border, base_bw=base_bw)
+                mode = f"{interp}/{border}/{'tight' if tight else 'plain'}"
+                # K1: per-(tile, lead) origins
                 sy = rng.integers(0, Hp - bh + 1, (T, L)).astype(np.int32)
                 sx = rng.integers(0, Wp - wx + 1, (T, L)).astype(np.int32)
                 sy[0], sx[0] = 0, 0  # origins at the array edges
                 sy[1], sx[1] = Hp - bh, Wp - wx
-                xt = sx[..., None] + rng.uniform(-5, wx + 5, (T, L, P))
-                yt = sy[..., None] + rng.uniform(-5, bh + 5, (T, L, P))
-                xt, yt = xt.astype(np.float32), yt.astype(np.float32)
-                xt[2, :, :3] = [np.nan, 1e6, -1e6]
-                yt[3, :, :3] = [-1e6, np.nan, 1e6]
-                kw = dict(bh=bh, bw=bw, pad_y=4, pad_x=6, n_y=Hp - 8,
-                          n_x=Wp - 12, interpolation=interp, border=border,
-                          base_bw=base_bw)
-                yield f"{interp}/{border}/{'tight' if tight else 'plain'}", (
-                    padded, sy, sx, xt, yt), kw
+                yield "fused_window_sample", mode, (
+                    padded, sy, sx, *_edge_coords(rng, sy, sx, bh, wx, (T, L, P))), kw
+                # K2: per-tile origins shared by the leads
+                sy, sx = sy[:, 0].copy(), sx[:, 0].copy()
+                yield "fused_window_folded", mode, (
+                    padded, sy, sx,
+                    *_edge_coords(rng, sy[:, None], sx[:, None], bh, wx, (T, L, P))), kw
+    # K3: the flow's offset sets (centre, 4 neighbours, 4 diagonals at d),
+    # bilinear; windows of the flow's shape (8 rows + margins, 128-aligned
+    # columns), one x tile (every origin 0) or several
+    C2, Wp2 = 2, 512
+    padded2 = rng.random((L, C2, Hp + 16, Wp2), dtype=np.float32)
+    dirs = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+    for d in (8, 4, 2, 1):
+        offs = ((0, 0),) + tuple((py * d, px * d) for py, px in dirs)
+        for border in ("constant", "clamp"):
+            for ntx in (1, 3):
+                bh, bw = -(-(24 + 2 * d) // 8) * 8, 256
+                sy = rng.integers(0, Hp + 16 - bh + 1, T).astype(np.int32)
+                sx = (rng.integers(0, ntx, T) * 128).astype(np.int32)
+                sy[0], sx[0] = 0, 0
+                kw = dict(pad_y=4 + d, pad_x=6 + d, n_y=Hp, n_x=Wp2 - 40,
+                          bh=bh, bw=bw, interpolation="bilinear",
+                          border=border, offsets=offs, off_my=d, off_mx=d)
+                yield "fused_window_offsets", f"d={d}/{border}/ntx={ntx}", (
+                    padded2, sy, sx,
+                    *_edge_coords(rng, sy[:, None], sx[:, None], bh, bw, (T, L, P))), kw
+
+
+def _twin_call(kernel):
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    if kernel == "fused_window_sample":
+        return fw.fused_window_sample, fw.fused_window_sample_reference
+    return fw.fused_window_sample_folded, fw.fused_window_sample_folded_reference
 
 
 def phase_small():
     import torch
 
-    from surround360_tpu_torch.ops import fused_window as fw
-
-    worst = 0.0
+    worst: dict = {}
     rng = np.random.default_rng(0)
-    for name, arrays, kw in _small_cases(rng):
+    for kernel, name, arrays, kw in _small_cases(rng):
+        call, twin = _twin_call(kernel)
         dev = [torch.from_numpy(a).cuda() for a in arrays]
-        got = fw.fused_window_sample(*dev, **kw)
+        got = call(*dev, **kw)
         torch.cuda.synchronize()
-        want = fw.fused_window_sample_reference(*dev, **kw)
+        want = twin(*dev, **kw)
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > TOL:
-            raise AssertionError(f"kernel vs twin {name}: max-abs {err}")
-        worst = max(worst, err)
-    log(f"[3 small] kernel vs twin, 8 cases: max-abs {worst:.3g} "
-        f"(<= {TOL})")
-    return worst
+            raise AssertionError(f"{kernel} vs twin {name}: max-abs {err}")
+        n, w = worst.get(kernel, (0, 0.0))
+        worst[kernel] = (n + 1, max(w, err))
+    for kernel, (n, err) in worst.items():
+        log(f"[3 small] {kernel} vs twin, {n} cases: max-abs {err:.3g} "
+            f"(<= {TOL})")
+    return {k: v[1] for k, v in worst.items()}
 
 
 def _render_inputs(rig, device):
@@ -143,11 +228,12 @@ def _render_inputs(rig, device):
     views = render_camera_views(rig)
     side = np.stack([views[rig.ids.index(s)] for s in rig.side_ids])
     to_dev = lambda a: torch.from_numpy(a).to(device)
-    return (to_dev(side), to_dev(views[rig.top_camera_index]),
-            to_dev(views[rig.bottom_camera_index]))
+    inputs = (to_dev(side), to_dev(views[rig.top_camera_index]),
+              to_dev(views[rig.bottom_camera_index]))
+    return inputs, views
 
 
-def _preset_config(preset: str):
+def _preset_config(preset: str, flow_alg: str = "pixflow_tpu"):
     from surround360_tpu_torch.cli.render_video import (
         PRESET_SHARPENING,
         PRESET_SIDE_FLOW_SCALE,
@@ -159,7 +245,7 @@ def _preset_config(preset: str):
     return RenderConfig(
         eqr_width=eqr_w, eqr_height=eqr_h, final_eqr_width=fin_w,
         final_eqr_height=fin_h, sharpening=PRESET_SHARPENING,
-        side_flow_alg="pixflow_tpu", polar_flow_alg="pixflow_tpu",
+        side_flow_alg=flow_alg, polar_flow_alg=flow_alg,
         side_flow_scale=PRESET_SIDE_FLOW_SCALE.get(preset, 1.0),
         enable_top=True, enable_bottom=True,
     )
@@ -174,7 +260,8 @@ def _sync(device):
 
 def phase_main_path(rig, preset, device):
     """Two chained frames through the user entry points; returns the
-    context, inputs, outputs, launches and the recorded kernel calls."""
+    context, inputs, views, launches per kernel, the recorded calls and
+    times."""
     import torch
 
     from surround360_tpu_torch.ops import fused_window as fw
@@ -184,23 +271,26 @@ def phase_main_path(rig, preset, device):
     )
 
     t0 = time.perf_counter()
-    inputs = _render_inputs(rig, device)
+    inputs, views = _render_inputs(rig, device)
+    t1 = time.perf_counter()
     ctx = build_render_context(rig, _preset_config(preset))
-    log(f"[4 main] inputs + context in {time.perf_counter() - t0:.1f} s "
-        f"(strip {ctx.strip_h}x{ctx.strip_w}, poles {ctx.top_h} rows)")
+    log(f"[4 main] simulator views {t1 - t0:.1f} s, build_render_context "
+        f"{time.perf_counter() - t1:.1f} s (strip {ctx.strip_h}x"
+        f"{ctx.strip_w}, poles {ctx.top_h} rows)")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     fw.RECORD = {}
-    fw.reset_launch_counts()
     times = []
     state = None
+    fw.reset_launch_counts()
     for frame in range(2):
         t0 = time.perf_counter()
         out, state = render_frame(ctx, *inputs, state=state,
                                   use_temporal=frame > 0)
         _sync(device)
         times.append(time.perf_counter() - t0)
-    launches, sites = fw.LAUNCHES, dict(fw.SITE_LAUNCHES)
+    sites = {s: fw.launch_count(fw.K1, s) for s in K1_SITES}
+    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
     record, fw.RECORD = fw.RECORD, None
     eqr = out["equirect"]
     cfg = ctx.config
@@ -209,66 +299,225 @@ def phase_main_path(rig, preset, device):
         raise AssertionError(f"equirect {tuple(eqr.shape)} != {want}")
     if not bool(torch.isfinite(eqr).all()):
         raise AssertionError("non-finite values in the equirect")
-    missing = [s for s in SITES if sites.get(s, 0) == 0]
+    missing = [s for s, n in sites.items() if n == 0]
     if missing and device.type == "cuda":
         raise AssertionError(f"no kernel launch at {missing}: {sites}")
+    if launches[fw.K2]:
+        raise AssertionError(f"K2 launched on the product path: {launches}")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
     log(f"[4 main] {preset} {cfg.eqr_width}x{cfg.eqr_height}/eye -> "
         f"{tuple(eqr.shape)}: frame 0 {times[0]:.3f} s, frame 1 (temporal) "
-        f"{times[1]:.3f} s, peak {peak:.2f} GiB, launches {launches} {sites}")
-    return ctx, inputs, launches, record, times
+        f"{times[1]:.3f} s, peak {peak:.2f} GiB, K1 sites {sites}, launches "
+        f"{launches}")
+    return ctx, inputs, views, launches, record, times
+
+
+def _site_check(phase, key, record):
+    """Recorded call vs twin; returns (max-abs, kernel ms, twin ms)."""
+    kernel, site, _ = key
+    args, kw, got = record[key]
+    call, twin = _twin_call(kernel)
+    want = twin(*args, **kw)
+    err = float((got - want).abs().max())
+    if err > TOL:
+        raise AssertionError(f"{kernel} vs twin at {site}: max-abs {err}")
+    k_ms = cuda_ms(lambda: call(*args, **kw))
+    p_ms = cuda_ms(lambda: twin(*args, **kw))
+    T, L, P = args[3].shape
+    wx = kw["base_bw"] or kw["bw"]
+    offs = kw.get("offsets")
+    shape = (f"O={len(offs)} d={kw['off_my']} ntx={len(args[2].unique())}"
+             if offs else "O=1")
+    log(f"[{phase}] {kernel} at {site}: T={T} L={L} C={args[0].shape[1]} "
+        f"P={P} {shape} bh={kw['bh']} wx={wx} src={tuple(args[0].shape)}: "
+        f"max-abs {err:.3g}, kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms")
+    return err, k_ms, p_ms
 
 
 def phase_sites(record):
-    """Recorded main-path calls: kernel vs twin, and both times."""
-    from surround360_tpu_torch.ops import fused_window as fw
-
+    """Recorded main-path K1 calls: kernel vs twin, and both times."""
     worst, ms, plain_ms = 0.0, 0.0, 0.0
-    for site in SITES:
-        args, kw, got = record[site]
-        want = fw.fused_window_sample_reference(*args, **kw)
-        err = float((got - want).abs().max())
-        if err > TOL:
-            raise AssertionError(f"kernel vs twin at {site}: max-abs {err}")
-        k_ms = cuda_ms(lambda: fw.fused_window_sample(*args, **kw))
-        p_ms = cuda_ms(lambda: fw.fused_window_sample_reference(*args, **kw))
-        T, L, P = args[3].shape
-        log(f"[5 sites] {site}: T={T} L={L} C={args[0].shape[1]} P={P} "
-            f"bh={kw['bh']} wx={kw['base_bw'] or kw['bw']} src="
-            f"{tuple(args[0].shape)}: max-abs {err:.3g}, kernel "
-            f"{k_ms:.3f} ms, twin {p_ms:.3f} ms")
+    for site in K1_SITES:
+        err, k_ms, p_ms = _site_check("5 sites", ("fused_window_sample", site, None),
+                                      record)
         worst, ms, plain_ms = max(worst, err), ms + k_ms, plain_ms + p_ms
     return worst, ms, plain_ms
 
 
-def phase_quality(ctx, inputs, device):
-    """Full-sphere PSNR per eye, no sharpening and no final resize."""
-    import dataclasses
-
-    import torch
-
-    from surround360_tpu_torch.capture import render_equirect_reference
+def _psnr_full_sphere(qctx, inputs, expect):
     from surround360_tpu_torch.render.panorama import render_frame
 
-    cfg = dataclasses.replace(
-        ctx.config, sharpening=0.0, final_eqr_width=0, final_eqr_height=0
-    )
-    qctx = dataclasses.replace(ctx, config=cfg)
     eqr = render_frame(qctx, *inputs)[0]["equirect"]
-    expect = torch.from_numpy(
-        render_equirect_reference(qctx, full_sphere=True)
-    ).to(device)
-    h = cfg.eqr_height
+    import torch
+
+    h = qctx.config.eqr_height
     psnrs = []
     for eye in (eqr[:, :h], eqr[:, h:]):
         mse = float(torch.mean((eye - expect) ** 2))
         psnrs.append(10.0 * np.log10(1.0 / max(mse, 1e-12)))
-    log(f"[6 quality] full-sphere PSNR L {psnrs[0]:.2f} dB, R "
+    return psnrs
+
+
+def phase_quality(ctx, inputs, device, flow_alg, phase, expect=None):
+    """Full-sphere PSNR per eye, no sharpening and no final resize."""
+    import torch
+
+    from surround360_tpu_torch.capture import render_equirect_reference
+
+    cfg = dataclasses.replace(
+        ctx.config, sharpening=0.0, final_eqr_width=0, final_eqr_height=0,
+        side_flow_alg=flow_alg, polar_flow_alg=flow_alg,
+    )
+    qctx = dataclasses.replace(ctx, config=cfg)
+    if expect is None:
+        expect = torch.from_numpy(
+            render_equirect_reference(qctx, full_sphere=True)
+        ).to(device)
+    psnrs = _psnr_full_sphere(qctx, inputs, expect)
+    log(f"[{phase}] {flow_alg}: full-sphere PSNR L {psnrs[0]:.2f} dB, R "
         f"{psnrs[1]:.2f} dB (>= {PSNR_MIN})")
     if min(psnrs) < PSNR_MIN:
         raise AssertionError(f"full-sphere PSNR {psnrs} below {PSNR_MIN}")
-    return psnrs
+    return expect
+
+
+def _write_footage(rig, views, imgs):
+    """Frame 0 as 16-bit PNGs with the port's writer; frame 1 hard-links
+    frame 0."""
+    from surround360_tpu_torch.cli.common import write_image
+    from surround360_tpu_torch.geometry.rig import save_rig
+
+    os.makedirs(imgs, exist_ok=True)
+    rig_path = os.path.join(WORK, "rig.json")
+    save_rig(rig_path, rig)
+
+    def one(i):
+        d = os.path.join(imgs, rig.ids[i])
+        os.makedirs(d, exist_ok=True)
+        write_image(os.path.join(d, "000000.png"), views[i], bit_depth=16)
+        os.link(os.path.join(d, "000000.png"), os.path.join(d, "000001.png"))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(len(rig.ids))))
+    return rig_path
+
+
+def _video(argv):
+    """render_video.main; returns its state, wall seconds, the loop's
+    stage totals and the peak memory."""
+    import torch
+
+    from surround360_tpu_torch.cli import render_video
+    from surround360_tpu_torch.cli.common import StageTimer
+
+    timer = StageTimer()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = render_video.main(argv, timer=timer)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    return state, wall, timer.totals(), peak
+
+
+def phase_cli(rig, views):
+    """The video CLI at 6k with pixflow_tpu_offsets, chained and resumed.
+    Returns the launches per kernel and the recorded K3 calls."""
+    import torch
+
+    from surround360_tpu_torch.cli.common import read_image_rgba
+    from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    imgs = os.path.join(WORK, "imgs")
+    t0 = time.perf_counter()
+    rig_path = _write_footage(rig, views, imgs)
+    log(f"[7 cli] {len(rig.ids)} cameras x 2 frames as 16-bit PNGs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = ["--rig_json_file", rig_path, "--imgs_dir", imgs, "--quality",
+              PRESET, "--enable_top", "--enable_bottom",
+              "--side_flow_alg", "pixflow_tpu_offsets",
+              "--polar_flow_alg", "pixflow_tpu_offsets"]
+    chained = os.path.join(WORK, "chained")
+    states = os.path.join(WORK, "state")
+    fw.RECORD = {}
+    fw.reset_launch_counts()
+    state, wall, stages, peak = _video(
+        common + ["--output_dir", chained, "--start_frame", "0",
+                  "--end_frame", "1", "--save_state_dir", states])
+    sites = {s: fw.launch_count(fw.K3, s) for s in FLOW_SITES}
+    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
+    record, fw.RECORD = fw.RECORD, None
+    if any(n == 0 for n in sites.values()):
+        raise AssertionError(f"K3 not launched at every flow site: {sites}")
+    if launches[fw.K2]:
+        raise AssertionError(f"K2 launched on the product path: {launches}")
+    if not all(bool(torch.isfinite(v).all()) for v in state.values()):
+        raise AssertionError("non-finite temporal state")
+    frames = [read_image_rgba(os.path.join(chained, "eqr_frames", f"eqr_{f:06d}.png"))
+              for f in (0, 1)]
+    _, _, fin_w, fin_h = QUALITY_PRESETS[PRESET]
+    for img in frames:
+        if img.shape != (4, fin_h, fin_w) or not np.isfinite(img).all():
+            raise AssertionError(f"bad output frame {img.shape}")
+    loop_s = stages["loop"][1]
+    log(f"[7 cli] render_video {PRESET} pixflow_tpu_offsets, 2 frames: "
+        f"{loop_s / 2:.3f} s/frame ({loop_s:.3f} s loop, {wall:.1f} s with "
+        f"context), peak {peak:.2f} GiB, K3 sites {sites}, launches {launches}")
+    log("[7 cli] loop stages, seconds summed (entries): " + ", ".join(
+        f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items()))
+
+    resumed = os.path.join(WORK, "resumed")
+    _, wall, _, _ = _video(
+        common + ["--output_dir", resumed, "--start_frame", "1",
+                  "--end_frame", "1", "--resume_state",
+                  os.path.join(states, "state_000000.pkl")])
+    again = read_image_rgba(os.path.join(resumed, "eqr_frames", "eqr_000001.png"))
+    err = float(np.abs(again - frames[1]).max())
+    log(f"[7 cli] frame 1 resumed from state_000000.pkl ({wall:.1f} s with "
+        f"context and IO): max-abs vs chained {err:.3g} (<= 1/255)")
+    if err > 1.0 / 255.0 + 1e-6:
+        raise AssertionError(f"resumed frame 1 differs by {err}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, record
+
+
+def phase_flow_sites(record, device):
+    """K3 at each flow site and offset set (recorded in phase 7), and K2 at
+    the 6k side-flow level-0 geometry."""
+    import torch
+
+    from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.ops.window_sampler import make_window_sampler
+
+    d = lambda offs: max(abs(v) for o in offs for v in o)
+    keys = sorted((k for k in record if k[0] == fw.K3),
+                  key=lambda k: (k[1], -d(k[2])))  # by site, then d
+    if {k[1] for k in keys} != set(FLOW_SITES):
+        raise AssertionError(f"K3 records at {keys}, want {FLOW_SITES}")
+    k3 = [_site_check("8 flow sites", k, record) for k in keys]
+    # the side flow's level 0 at 6k: 14 pairs, 331x227, halos 39 / 56,
+    # the flow's 16-column tiles (tight-x), 13 folded candidates
+    g = torch.Generator(device=device).manual_seed(0)
+    B, H, W, hy, hx, E = 14, 331, 227, 39, 56, 13
+    img = torch.rand((B, 2, H, W), generator=g, device=device)
+    gy, gx = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
+                            torch.arange(W, device=device, dtype=torch.float32),
+                            indexing="ij")
+    noise = lambda h: (torch.rand((E, B, H, W), generator=g, device=device) * 2 - 1) * h
+    xs, ys = gx + noise(1.5 * hx), gy + noise(1.5 * hy)
+    fn = make_window_sampler(img, (H, W), hy, hx, "bilinear", "clamp", tr=8,
+                             tc=16, backend="kernel", site="side_flow_level0")
+    if fn.backend != "kernel":
+        raise AssertionError("the 6k side-flow level 0 is off the fused route")
+    fw.RECORD = {}
+    fn(xs, ys)
+    rec, fw.RECORD = fw.RECORD, None
+    k2 = _site_check("8 flow sites", (fw.K2, "side_flow_level0", None), rec)
+    return k3, k2
 
 
 def main():
@@ -276,28 +525,46 @@ def main():
 
     smi = phase_device()
     phase_build()
-    small_err = phase_small()
+    small = phase_small()
     from surround360_tpu_torch.geometry.rig import make_ring_rig
 
     device = torch.device("cuda", 0)
-    ctx, inputs, launches, record, _ = phase_main_path(
-        make_ring_rig(), PRESET, device
-    )
-    site_err, ms, plain_ms = phase_sites(record)
+    rig = make_ring_rig()
+    ctx, inputs, views, render_launches, record, _ = phase_main_path(
+        rig, PRESET, device)
+    k1_err, k1_ms, k1_plain = phase_sites(record)
     del record
-    phase_quality(ctx, inputs, device)
-    # ms / plain_ms: kernel and twin times summed over the recorded call
-    # of each of the four call sites (phase 5)
+    expect = phase_quality(ctx, inputs, device, "pixflow_tpu", "6 quality")
+    cli_launches, record = phase_cli(rig, views)
+    del views
+    k3, k2 = phase_flow_sites(record, device)
+    del record
+    phase_quality(ctx, inputs, device, "pixflow_tpu_offsets", "9 quality", expect)
+    # ms / plain_ms: kernel and twin times summed over the recorded calls
+    # (K1: one per call site, phase 5; K3: one per flow site and offset
+    # set, phase 8), and K2's forced call in phase 8. launches: the two
+    # product paths' runs (phase 4's render_frame and phase 7's CLI),
+    # counted from 0 just before each; K2 has no product caller, so 0
+    launches = {k: render_launches[k] + cli_launches[k] for k in render_launches}
+    entries = [
+        ("fused_window_sample", launches["fused_window_sample"],
+         max(small["fused_window_sample"], k1_err), k1_ms, k1_plain),
+        ("fused_window_folded", launches["fused_window_folded"],
+         max(small["fused_window_folded"], k2[0]), k2[1], k2[2]),
+        ("fused_window_offsets", launches["fused_window_offsets"],
+         max([small["fused_window_offsets"]] + [r[0] for r in k3]),
+         sum(r[1] for r in k3), sum(r[2] for r in k3)),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "fused_window_sample",
+        "name": name,
         "route": "cuda",
-        "source": "surround360_tpu_torch/csrc/fused_window_sample.cu",
-        "replaces": REPLACES,
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
         "launches": launches,
-        "max_abs_err": max(small_err, site_err),
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+    } for name, launches, err, ms, plain_ms in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,13 @@ to PyTorch on an NVIDIA Hopper GPU. The sub-packages mirror the reference:
 - ``geometry``  — camera model and rig descriptions (host float64 numpy).
 - ``ops``       — resize / filters / compositing / remap / window samplers,
                   and ``fused_window``: the hand-written CUDA windowed
-                  sampler (``csrc/fused_window_sample.cu``) that replaces
-                  the reference's Pallas kernel.
-- ``flow``      — pyramidal patch-match optical flow (``pixflow_tpu``).
+                  samplers (``csrc/``) that replace the reference's Pallas
+                  kernel, with their plain PyTorch twins.
+- ``flow``      — pyramidal patch-match optical flow, every preset.
 - ``views``     — flow-based novel-view synthesis.
 - ``render``    — the stereo equirect panorama renderer.
 - ``capture``   — the capture simulator (inputs and analytic truth).
-- ``cli``       — quality presets of the video renderer CLI.
+- ``cli``       — the video renderer CLI (``render_video``) and its PNG io.
 
 Device tensors are ``torch.Tensor`` on the device of their inputs; host
 geometry stays float64 numpy. The package never imports ``jax``.

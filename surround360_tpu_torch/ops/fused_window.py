@@ -1,23 +1,33 @@
-"""Fused windowed resampling: the CUDA kernel and its plain PyTorch twin.
+"""Fused windowed resampling: the CUDA kernels and their plain PyTorch twins.
 
-Port of ``surround360_tpu/ops/pallas_remap.py::fused_window_sample`` (its
-non-folded grid, which every main-path call uses). For tile t, lead l,
-channel c and sample p, ``out[t, l, c, p]`` is the bicubic (Keys a=-0.75)
-or bilinear sample of ``padded[l, c]`` at ``(xt[t, l, p], yt[t, l, p])``
-where only taps inside the (t, l) window
-``[sy, sy + bh) x [sx, sx + wx)`` count (``wx = base_bw`` when given, the
-tight-x mode of the reference, else ``bw``). See
-``csrc/fused_window_sample.cu`` for the kernel and its design notes.
+Port of ``surround360_tpu/ops/pallas_remap.py::fused_window_sample``:
 
-Dispatch: a CPU tensor goes to :func:`fused_window_sample_reference` (the
-twin: a torch gather of the same taps with the same window mask); a CUDA
-tensor launches the kernel, building it with ``nvcc`` on first use, or
-raises. There is no fallback from one to the other.
+- :func:`fused_window_sample` (K1, its non-folded grid): for tile t, lead
+  l, channel c and sample p, ``out[t, l, c, p]`` is the bicubic (Keys
+  a=-0.75) or bilinear sample of ``padded[l, c]`` at
+  ``(xt[t, l, p], yt[t, l, p])`` where only taps inside the (t, l) window
+  ``[sy, sy + bh) x [sx, sx + wx)`` count (``wx = base_bw`` when given,
+  the tight-x mode of the reference, else ``bw``). Kernel:
+  ``csrc/fused_window_sample.cu``.
+- :func:`fused_window_sample_folded` (its lead-folded grid): the window
+  origins are per tile, shared by every lead. Without ``offsets`` (K2) it
+  is K1 with those origins. With ``offsets`` (K3, bilinear only) it
+  returns one field per integer offset (oy, ox): the bilinear taps of the
+  base coordinate count only when they lie in the window's interior
+  ``[sy + off_my, sy + bh - off_my) x [sx + off_mx, sx + bw - off_mx)``,
+  and each reads the source at tap + (oy, ox). Kernel:
+  ``csrc/fused_window_folded.cu``.
 
-``LAUNCHES`` counts kernel launches and ``SITE_LAUNCHES`` tallies them by
-the caller's ``site`` label, so a run can show which call sites went
-through the kernel. ``RECORD``, when set to a dict, keeps the first
-launch's inputs and output per site for later comparison with the twin.
+Dispatch: a CPU tensor goes to the twin (``*_reference``: a torch gather of
+the same taps with the same window mask); a CUDA tensor launches the
+kernel, building it with ``nvcc`` on first use, or raises. There is no
+fallback from one to the other.
+
+``LAUNCHES`` counts kernel launches by (kernel, site), where kernel is one
+of :data:`KERNELS` and site is the caller's label, so a run can show which
+call sites went through which kernel. ``RECORD``, when set to a dict,
+keeps the inputs and output of the launch with the most samples per
+(kernel, site, offsets) for later comparison with the twin.
 """
 
 from __future__ import annotations
@@ -33,29 +43,42 @@ import time
 import torch
 
 __all__ = [
+    "KERNELS",
     "fused_window_sample",
     "fused_window_sample_reference",
+    "fused_window_sample_folded",
+    "fused_window_sample_folded_reference",
     "window_gather",
     "reset_launch_counts",
     "LAUNCHES",
-    "SITE_LAUNCHES",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_window_sample.cu")
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-LAUNCHES = 0
-SITE_LAUNCHES: collections.Counter = collections.Counter()
+# kernel name -> CUDA source under csrc/ (K2 and K3 share one source)
+K1, K2, K3 = "fused_window_sample", "fused_window_folded", "fused_window_offsets"
+KERNELS = (K1, K2, K3)
+_SOURCES = {K1: "fused_window_sample.cu", K2: "fused_window_folded.cu",
+            K3: "fused_window_folded.cu"}
+MAX_OFFSETS = 16  # csrc/fused_window_folded.cu kMaxOffsets
+
+LAUNCHES: collections.Counter = collections.Counter()
 RECORD: dict | None = None
-BUILD_SECONDS: float | None = None
-_lib = None
+_LIBS: dict = {}  # source file -> loaded ctypes library
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-    SITE_LAUNCHES.clear()
+    LAUNCHES.clear()
+
+
+def launch_count(kernel: str | None = None, site: str | None = None) -> int:
+    """Launches of ``kernel`` (any when None) at ``site`` (any when None)."""
+    return sum(
+        n for (k, s), n in LAUNCHES.items()
+        if kernel in (None, k) and site in (None, s)
+    )
 
 
 def _find_nvcc() -> str:
@@ -64,46 +87,71 @@ def _find_nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the fused window kernel is built "
-        "from csrc/fused_window_sample.cu at first use"
+        "nvcc not found (set CUDA_HOME): the fused window kernels are built "
+        "from surround360_tpu_torch/csrc/ at first use"
     )
 
 
-def _load_library():
-    """Build (once per source hash) and load the kernel's shared library."""
-    global _lib, BUILD_SECONDS
-    if _lib is not None:
-        return _lib
-    with open(_SOURCE, "rb") as f:
+def _build(source: str) -> str:
+    """nvcc ``csrc/<source>`` into ``_build/``, keyed by the source hash;
+    returns the shared library's path (built once per hash)."""
+    path = os.path.join(_CSRC_DIR, source)
+    with open(path, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so_path = os.path.join(_BUILD_DIR, f"libfused_window_{digest}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [
-            _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-o", tmp, _SOURCE,
-        ]
+    stem = os.path.splitext(source)[0]
+    so_path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = [
+        _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-o", tmp, path,
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc {source} failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel source, one nvcc process each, all started
+    together; returns source -> seconds (near 0 for a cached build)."""
+    import concurrent.futures
+
+    def timed(source):
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, so_path)
-        BUILD_SECONDS = time.perf_counter() - t0
+        _build(source)
+        return time.perf_counter() - t0
+
+    sources = sorted(set(_SOURCES.values()))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return dict(zip(sources, pool.map(timed, sources)))
+
+
+def _load_library(kernel: str = K1):
+    """Build (once per source hash) and load ``kernel``'s shared library."""
+    source = _SOURCES[kernel]
+    if source in _LIBS:
+        return _LIBS[source]
+    lib = ctypes.CDLL(_build(source))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if source == _SOURCES[K1]:
+        fn = lib.s360_fused_window_sample
+        fn.argtypes = [vp] * 6 + [i] * 14 + [vp]
     else:
-        BUILD_SECONDS = 0.0
-    lib = ctypes.CDLL(so_path)
-    fn = lib.s360_fused_window_sample
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-    _lib = lib
+        fn = lib.s360_fused_window_folded
+        fn.argtypes = [vp] * 6 + [i] * 17 + [vp, vp]
+    fn.restype = i
+    _LIBS[source] = lib
     return lib
 
 
-def _check_inputs(padded, sy, sx, xt, yt, interpolation, border):
+def _check_inputs(padded, sy, sx, xt, yt, interpolation, border, origin_shape):
     if interpolation not in ("bicubic", "bilinear"):
         raise ValueError(f"unknown interpolation: {interpolation}")
     if border not in ("constant", "clamp"):
@@ -116,16 +164,17 @@ def _check_inputs(padded, sy, sx, xt, yt, interpolation, border):
     if xt.ndim != 3 or xt.shape != yt.shape or xt.shape[1] != L:
         raise ValueError(f"xt/yt must be (T, L, P); got {tuple(xt.shape)}")
     T = xt.shape[0]
+    want = (T, L) if origin_shape == "TL" else (T,)
     for name, o in (("sy", sy), ("sx", sx)):
-        if o.dtype != torch.int32 or tuple(o.shape) != (T, L):
-            raise ValueError(f"{name} must be (T, L) int32")
+        if o.dtype != torch.int32 or tuple(o.shape) != want:
+            raise ValueError(f"{name} must be {origin_shape} int32")
     devs = {t.device for t in (padded, sy, sx, xt, yt)}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {devs}")
 
 
-def _axis_taps(v, origin, extent, pad, n, limit, bicubic, clamp):
-    """Torch twin of the kernel's ``axis_taps``: list of (index, weight)
+def _axis_taps(v, origin, extent, pad, n, bicubic, clamp):
+    """Torch twin of the kernels' ``axis_taps``: list of (index, weight)
     with masked taps at index 0 / weight 0."""
     if clamp and not bicubic:
         v = torch.clamp(v - pad, 0.0, n - 1.0) + pad
@@ -156,19 +205,25 @@ def _axis_taps(v, origin, extent, pad, n, limit, bicubic, clamp):
         i = i0 + off
         if clamp and bicubic:
             i = torch.clamp(i, pad, pad + n - 1)
-        ok = (i >= origin) & (i < origin + extent) & (i >= 0) & (i < limit)
+        ok = (i >= origin) & (i < origin + extent)
         taps.append((torch.where(ok, i, 0), torch.where(ok, w, 0.0)))
     return taps
 
 
 def window_gather(
     src, x, y, oy, ox, *, bh, wx, pad_y, pad_x, n_y, n_x,
-    interpolation="bicubic", border="constant",
+    interpolation="bicubic", border="constant", margin_y=0, margin_x=0,
+    offsets=None,
 ):
-    """The twin's core, for any sample layout. src (L, C, Hp, Wp); x, y
+    """The twins' core, for any sample layout. src (L, C, Hp, Wp); x, y
     (L, S) sample coords and oy, ox (L, S) window origins, all in the
     padded units of ``src``. Returns (L, C, S): taps summed over x then y,
-    each counted only inside its window [oy, oy + bh) x [ox, ox + wx)."""
+    each counted only inside its window [oy, oy + bh) x [ox, ox + wx).
+
+    With ``offsets`` ((dy, dx), ...) returns (L, O, C, S): a tap counts when
+    it lies in the window's interior (the window less ``margin_y`` /
+    ``margin_x`` on each side) and reads the source at tap + (dy, dx), 0
+    outside the array."""
     L, C, Hp, Wp = src.shape
     S = x.shape[-1]
     bicubic = interpolation == "bicubic"
@@ -176,53 +231,71 @@ def window_gather(
     finite = torch.isfinite(x) & torch.isfinite(y)
     x = torch.where(finite, x, 0.0)
     y = torch.where(finite, y, 0.0)
-    ty = _axis_taps(y, oy, bh, pad_y, n_y, Hp, bicubic, clamp)
-    tx = _axis_taps(x, ox, wx, pad_x, n_x, Wp, bicubic, clamp)
+    ty = _axis_taps(y, oy + margin_y, bh - 2 * margin_y, pad_y, n_y, bicubic, clamp)
+    tx = _axis_taps(x, ox + margin_x, wx - 2 * margin_x, pad_x, n_x, bicubic, clamp)
     flat = src.reshape(L, C, Hp * Wp)
-    out = torch.zeros((L, C, S), dtype=torch.float32, device=src.device)
-    for iy, wy in ty:
-        row = torch.zeros_like(out)
-        for ix, wxx in tx:
-            idx = (iy * Wp + ix)[:, None, :].expand(L, C, S)
-            row += wxx[:, None, :] * torch.gather(flat, 2, idx)
-        out += wy[:, None, :] * row
-    return out * finite[:, None, :]
+    fields = []
+    for dy, dx in offsets or ((0, 0),):
+        out = torch.zeros((L, C, S), dtype=torch.float32, device=src.device)
+        for iy, wy in ty:
+            iy = iy + dy
+            oky = (iy >= 0) & (iy < Hp)
+            row = torch.zeros_like(out)
+            for ix, wxx in tx:
+                ix = ix + dx
+                ok = oky & (ix >= 0) & (ix < Wp)
+                idx = torch.where(ok, iy * Wp + ix, 0)[:, None, :].expand(L, C, S)
+                w = torch.where(ok, wxx, 0.0)
+                row += w[:, None, :] * torch.gather(flat, 2, idx)
+            out += wy[:, None, :] * row
+        fields.append(out * finite[:, None, :])
+    return torch.stack(fields, dim=1) if offsets is not None else fields[0]
+
+
+def _lead_major(a, L):  # (T, L, P) -> (L, T * P)
+    return a.permute(1, 0, 2).reshape(L, -1)
 
 
 def fused_window_sample_reference(
     padded, sy, sx, xt, yt, *, bh, bw, pad_y, pad_x, n_y, n_x,
     interpolation="bicubic", border="constant", base_bw=None,
 ):
-    """Plain PyTorch twin of the kernel (same signature and semantics)."""
-    _check_inputs(padded, sy, sx, xt, yt, interpolation, border)
+    """Plain PyTorch twin of K1 (same signature and semantics)."""
+    _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "TL")
     L, C = padded.shape[:2]
     T, _, P = xt.shape
-
-    def lead_major(a):  # (T, L, P) -> (L, T * P)
-        return a.permute(1, 0, 2).reshape(L, T * P)
 
     def origins(o):  # (T, L) -> (L, T * P)
         return o.t().reshape(L, T, 1).expand(L, T, P).reshape(L, T * P)
 
     out = window_gather(
-        padded, lead_major(xt), lead_major(yt), origins(sy), origins(sx),
-        bh=bh, wx=bw if base_bw is None else base_bw, pad_y=pad_y,
-        pad_x=pad_x, n_y=n_y, n_x=n_x, interpolation=interpolation,
-        border=border,
+        padded, _lead_major(xt, L), _lead_major(yt, L), origins(sy),
+        origins(sx), bh=bh, wx=bw if base_bw is None else base_bw,
+        pad_y=pad_y, pad_x=pad_x, n_y=n_y, n_x=n_x,
+        interpolation=interpolation, border=border,
     )
     return out.reshape(L, C, T, P).permute(2, 0, 1, 3).contiguous()
+
+
+def _record(kernel, site, args, kw, out):
+    """Keep the launch with the most samples per (kernel, site, offsets)."""
+    if RECORD is None:
+        return
+    key = (kernel, site, kw.get("offsets"))
+    if key not in RECORD or args[3].numel() > RECORD[key][0][3].numel():
+        RECORD[key] = (args, kw, out)
 
 
 def fused_window_sample(
     padded, sy, sx, xt, yt, *, bh, bw, pad_y, pad_x, n_y, n_x,
     interpolation="bicubic", border="constant", base_bw=None, site="",
 ):
-    """Windowed sampling, (T, L, C, P) float32 (see the module docstring).
+    """K1: windowed sampling, (T, L, C, P) float32 (see the module
+    docstring).
 
     padded (L, C, Hp, Wp) f32; sy, sx (T, L) int32 window origins in
     padded coords; xt, yt (T, L, P) f32 sample coords in padded units.
-    ``site`` labels the caller in ``SITE_LAUNCHES``."""
-    global LAUNCHES
+    ``site`` labels the caller in ``LAUNCHES``."""
     kw = dict(
         bh=bh, bw=bw, pad_y=pad_y, pad_x=pad_x, n_y=n_y, n_x=n_x,
         interpolation=interpolation, border=border, base_bw=base_bw,
@@ -231,9 +304,9 @@ def fused_window_sample(
         return fused_window_sample_reference(padded, sy, sx, xt, yt, **kw)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
-    _check_inputs(padded, sy, sx, xt, yt, interpolation, border)
+    _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "TL")
     args = [t.contiguous() for t in (padded, sy, sx, xt, yt)]
-    lib = _load_library()
+    lib = _load_library(K1)
     L, C, Hp, Wp = padded.shape
     T, _, P = xt.shape
     out = torch.empty((T, L, C, P), dtype=torch.float32, device=padded.device)
@@ -247,8 +320,102 @@ def fused_window_sample(
         )
     if err != 0:
         raise RuntimeError(f"fused_window_sample launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    SITE_LAUNCHES[site] += 1
-    if RECORD is not None and site not in RECORD:
-        RECORD[site] = (args, kw, out)
+    LAUNCHES[(K1, site)] += 1
+    _record(K1, site, args, kw, out)
+    return out
+
+
+def _check_folded(offsets, interpolation, off_my, off_mx, bh, wx):
+    if offsets is None:
+        if off_my or off_mx:
+            raise ValueError("offset margins need offsets")
+        return
+    if interpolation != "bilinear":
+        raise ValueError("offsets mode is bilinear only")
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+    if any(abs(dy) > off_my or abs(dx) > off_mx for dy, dx in offsets):
+        raise ValueError("an offset exceeds its margin")
+    if bh <= 2 * off_my or wx <= 2 * off_mx:
+        raise ValueError("the window must be wider than both margins")
+
+
+def fused_window_sample_folded_reference(
+    padded, sy, sx, xt, yt, *, bh, bw, pad_y, pad_x, n_y, n_x,
+    interpolation="bilinear", border="clamp", offsets=None, base_bw=None,
+    off_my=0, off_mx=0,
+):
+    """Plain PyTorch twin of K2 / K3 (same signature and semantics)."""
+    _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "T")
+    wx = bw if (base_bw is None or offsets is not None) else base_bw
+    _check_folded(offsets, interpolation, off_my, off_mx, bh, wx)
+    L, C = padded.shape[:2]
+    T, _, P = xt.shape
+
+    def origins(o):  # (T,) -> (L, T * P)
+        return o.reshape(1, T, 1).expand(L, T, P).reshape(L, T * P)
+
+    out = window_gather(
+        padded, _lead_major(xt, L), _lead_major(yt, L), origins(sy),
+        origins(sx), bh=bh, wx=wx, pad_y=pad_y, pad_x=pad_x, n_y=n_y,
+        n_x=n_x, interpolation=interpolation, border=border,
+        margin_y=off_my, margin_x=off_mx,
+        offsets=None if offsets is None else tuple(offsets),
+    )
+    if offsets is None:
+        return out.reshape(L, C, T, P).permute(2, 0, 1, 3).contiguous()
+    O = len(offsets)
+    return out.reshape(L, O, C, T, P).permute(3, 0, 1, 2, 4).contiguous()
+
+
+def fused_window_sample_folded(
+    padded, sy, sx, xt, yt, *, bh, bw, pad_y, pad_x, n_y, n_x,
+    interpolation="bilinear", border="clamp", offsets=None, base_bw=None,
+    off_my=0, off_mx=0, site="",
+):
+    """K2 / K3: lead-folded windowed sampling (see the module docstring).
+
+    padded (L, C, Hp, Wp) f32; sy, sx (T,) int32 per-tile window origins
+    in padded coords, shared by every lead; xt, yt (T, L, P) f32 sample
+    coords in padded units. Without ``offsets`` the window is
+    ``[sy, sy + bh) x [sx, sx + (base_bw or bw))`` and the result is
+    (T, L, C, P). With ``offsets`` ((oy, ox), ...), at most
+    :data:`MAX_OFFSETS`, each within the margins ``off_my`` / ``off_mx``,
+    the window is ``bh x bw`` and the result is (T, L, O, C, P).
+    ``site`` labels the caller in ``LAUNCHES``."""
+    kw = dict(
+        bh=bh, bw=bw, pad_y=pad_y, pad_x=pad_x, n_y=n_y, n_x=n_x,
+        interpolation=interpolation, border=border,
+        offsets=None if offsets is None else tuple(offsets),
+        base_bw=base_bw, off_my=off_my, off_mx=off_mx,
+    )
+    if padded.device.type == "cpu":
+        return fused_window_sample_folded_reference(padded, sy, sx, xt, yt, **kw)
+    if padded.device.type != "cuda":
+        raise ValueError(f"unsupported device: {padded.device}")
+    _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "T")
+    wx = bw if (base_bw is None or offsets is not None) else base_bw
+    _check_folded(offsets, interpolation, off_my, off_mx, bh, wx)
+    kernel = K2 if offsets is None else K3
+    args = [t.contiguous() for t in (padded, sy, sx, xt, yt)]
+    lib = _load_library(kernel)
+    L, C, Hp, Wp = padded.shape
+    T, _, P = xt.shape
+    offs = kw["offsets"] or ((0, 0),)
+    O = len(offs)
+    off_yx = (ctypes.c_int * (2 * O))(*[v for o in offs for v in o])
+    shape = (T, L, C, P) if offsets is None else (T, L, O, C, P)
+    out = torch.empty(shape, dtype=torch.float32, device=padded.device)
+    with torch.cuda.device(padded.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.s360_fused_window_folded(
+            *[a.data_ptr() for a in args], out.data_ptr(),
+            T, L, C, Hp, Wp, P, bh, wx, off_my, off_mx, pad_y, pad_x,
+            n_y, n_x, int(interpolation == "bicubic"),
+            int(border == "clamp"), O, off_yx, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[(kernel, site)] += 1
+    _record(kernel, site, args, kw, out)
     return out

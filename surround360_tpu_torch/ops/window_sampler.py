@@ -11,8 +11,12 @@ a gather of the taps with the window mask (``fused_window.window_gather``).
 
 - :func:`plan_windows` / :func:`plan_windows_budgeted`: the reference's
   static tile geometry, verbatim.
-- :func:`sample_displaced` and :func:`make_window_sampler`: static windows
-  at ``tile * stride - pad`` (plain torch).
+- :func:`sample_displaced`: static windows at ``tile * stride - pad``
+  (plain torch).
+- :func:`make_window_sampler`: the flow's reusable sampler, with the
+  reference's two routes: fused (the lead-folded kernels K2 / K3, where
+  the reference takes Pallas) or plain (its XLA fallback), chosen by the
+  shape-only predicate :func:`fused_route_plan`.
 - :func:`sample_displaced_residual`: displacement-following windows whose
   per-(tile, lead) origins track the tile's mean displacement; sampled by
   the fused window kernel with the window extents of the reference's
@@ -28,7 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .fused_window import fused_window_sample, window_gather
+from .fused_window import (
+    fused_window_sample,
+    fused_window_sample_folded,
+    window_gather,
+)
 
 __all__ = [
     "WindowPlan",
@@ -195,15 +203,211 @@ def sample_displaced(
     return _sample_static(img, plan, x, y)
 
 
-def make_window_sampler(img, plan: WindowPlan):
-    """Reusable static-window sampler fn(x, y) over a fixed (B, C, H, W)
-    source with a given plan (the flow passes its budgeted plan, the
-    reference's XLA-route ``xla_plan``): coords (E..., B, Ho, Wo) ->
-    (E..., B, C, Ho, Wo)."""
+# The reference's model of one fused-kernel step's TPU memory
+# (pallas_remap.py:57-100) and its budget. Here it sizes nothing: it is
+# the fused route's admission test, which decides the windows a call gets
+# and so its values.
+_ROUTE_STEP_BUDGET = 28 * 1024 * 1024
+
+
+def _route_step_bytes(C, P, bh, bw, L, group, compute_dtype, n_off, n_ox):
+    """``_step_vmem_bytes`` of the lead-folded grid."""
+    Pg = -(-P // group)
+    dt = 2 if compute_dtype == "bfloat16" else 4
+    win = L * C * bh * bw * 4
+    blocks = 2 * (2 * L * P * 4) + 2 * (L * n_off * C * P * 4)
+    onehots = Pg * (bh + bw) * dt + Pg * max(bh, bw) * 4
+    return win + onehots + n_ox * Pg * C * bh * 4 + blocks
+
+
+def _route_group(C, P, bh, bw, L, compute_dtype, n_off=1, n_ox=1) -> int:
+    """``_pick_kernel_group``: the smallest admissible split of P into
+    128-multiples, or 0 when none fits the step budget."""
+    if P % 128:
+        return 0
+    for G in range(1, P // 128 + 1):
+        if P % G or (P // G) % 128:
+            continue
+        if _route_step_bytes(
+            C, P, bh, bw, L, G, compute_dtype, n_off, n_ox
+        ) <= _ROUTE_STEP_BUDGET:
+            return G
+    return 0
+
+
+# precision strings the reference counts as multi-pass f32 (its
+# ``is_f32_class`` after ``resolve``); any other takes its bf16 step model
+_F32_CLASS = {"float32", "highest", "bfloat16_3x", "high", "tensorfloat32"}
+
+
+def fused_route_plan(
+    B, C, src_hw, out_hw, halo_y, halo_x, interpolation, border, tr, tc,
+    precision="float32", backend="auto", min_out_px=16384, offsets=None,
+):
+    """The route predicate of :func:`make_window_sampler`: the plan of the
+    fused (kernel) route, or None for the plain route. A function of the
+    shapes and static arguments only, with the reference's conditions
+    (window_sampler.py:911-942): enough output pixels (unless forced),
+    8-row tiles, 128-column tiles with offsets across several x tiles, and
+    a window that passes the reference's step-memory admission test."""
+    if backend not in ("auto", "xla", "kernel"):
+        raise ValueError(f"unknown backend: {backend}")
+    Ho, Wo = out_hw
+    if backend == "xla" or (Ho * Wo < min_out_px and backend != "kernel"):
+        return None
+    plan = plan_windows(src_hw, out_hw, halo_y, halo_x, interpolation,
+                        border, tr, tc)
+    if plan.tr % 8 or (offsets and plan.ntx > 1 and plan.tc % 128):
+        return None
+    my, mx = _offset_margins(offsets)
+    bh_k, bw_k = _kernel_extents(plan, my, mx)
+    compute_dtype = "float32" if precision in _F32_CLASS else "bfloat16"
+    n_off = len(offsets) if offsets else 1
+    n_ox = len({o[1] for o in offsets}) if offsets else 1
+    Pt = -(-(plan.tr * plan.tc) // 128) * 128
+    if _route_group(C, Pt, bh_k, bw_k, B, compute_dtype, n_off, n_ox) == 0:
+        return None
+    return plan
+
+
+def _offset_margins(offsets):
+    if not offsets:
+        return 0, 0
+    return max(abs(o[0]) for o in offsets), max(abs(o[1]) for o in offsets)
+
+
+def _kernel_extents(plan: WindowPlan, my: int, mx: int):
+    """The fused route's window extents (window_sampler.py:933-935): rows
+    to a multiple of 8, columns to a multiple of 128 (with 127 columns of
+    slack where tile columns are unaligned), both widened by the offset
+    margins. The slack lies inside the window, so it decides values."""
+    xq = 0 if plan.ntx <= 1 else plan.tc % 128
+    bh_k = -(-(plan.bh + 2 * my) // 8) * 8
+    bw_k = -(-(plan.bw + 2 * mx + (127 if xq else 0)) // 128) * 128
+    return bh_k, bw_k
+
+
+def _tile_coords(v, p: WindowPlan):
+    """(..., Ho, Wo) -> (T, ..., tr * tc) grouped by tile, edge-padded."""
+    lead = v.shape[:-2]
+    flat = v.reshape((-1, 1, p.Ho, p.Wo)).float()
+    flat = F.pad(flat, (0, p.ntx * p.tc - p.Wo, 0, p.nty * p.tr - p.Ho),
+                 mode="replicate")
+    n = flat.shape[0]
+    flat = flat.reshape(n, p.nty, p.tr, p.ntx, p.tc).permute(1, 3, 0, 2, 4)
+    return flat.reshape((p.nty * p.ntx,) + lead + (p.tr * p.tc,))
+
+
+def make_window_sampler(
+    img, out_hw, halo_y: int, halo_x: int,
+    interpolation: str = "bilinear", border: str = "clamp",
+    tr: int = 8, tc: int = 128, precision: str = "float32",
+    xla_plan: WindowPlan | None = None,
+    backend: str = "auto", min_out_px: int = 16384,
+    offsets: tuple | None = None, site: str = "",
+):
+    """Reusable sampler fn(x, y) over a fixed (B, C, H, W) source, with the
+    reference's signature (window_sampler.py:853-1063).
+
+    Coords (E..., B, Ho, Wo) absolute source coordinates (extra leading
+    dims = flow candidates sharing the source) -> (E..., B, C, Ho, Wo).
+    With ``offsets`` ((oy, ox), ...) the coords are plain (B, Ho, Wo) and
+    the result is (O, B, C, Ho, Wo), slot o sampled at (x + ox, y + oy).
+
+    Two routes, chosen by :func:`fused_route_plan` from the shapes alone:
+
+    - the fused route, where the reference on its TPU takes its Pallas
+      kernel: static per-tile windows (origins ``ty * tr`` and
+      ``floor128(tx * tc)``, or the exact ``tx * tc`` in tight-x mode) of
+      the widened kernel extents, sampled by
+      :func:`~.fused_window.fused_window_sample_folded` (K2, or K3 with
+      offsets: one window per tile, the source padded by the halo plus the
+      offset margin, edge-replicated for "clamp");
+    - the plain route, the reference's XLA fallback: ``xla_plan`` (or the
+      plan with halos widened by the offset margins), offsets evaluated as
+      folded candidate coordinates.
+
+    ``backend``: "auto" takes the fused route where the predicate admits
+    it, on CPU (the twin) and CUDA (the kernel) alike; "xla" forces the
+    plain route; "kernel" (the reference's "pallas") takes the fused route
+    at any output size. ``precision`` enters only the predicate (the
+    reference's bf16 step model); the port samples in float32 on both
+    routes. The reference's ``xla_tile_chunk`` only bounded its XLA
+    memory and is not taken. ``site`` labels the kernel's launches. The
+    returned fn's ``backend`` is "kernel" or "xla"."""
+    B, C, H, W = img.shape
+    Ho, Wo = out_hw
+    my, mx = _offset_margins(offsets)
+    plan = fused_route_plan(
+        B, C, (H, W), (Ho, Wo), halo_y, halo_x, interpolation, border, tr,
+        tc, precision, backend, min_out_px, offsets,
+    )
+    if plan is None:
+        if xla_plan is None:
+            xla_plan = plan_windows(
+                (H, W), (Ho, Wo), halo_y + my, halo_x + mx, interpolation,
+                border, tr, tc,
+            )
+
+        if offsets is not None:
+            off = torch.tensor(offsets, dtype=torch.float32, device=img.device)
+            off = off[:, :, None, None, None]  # (O, 2, 1, 1, 1): oy, ox
+
+        def fn_plain(x, y):
+            if offsets is not None:
+                x, y = x[None] + off[:, 1], y[None] + off[:, 0]
+            return _sample_static(img, xla_plan, x, y)
+
+        fn_plain.backend = "xla"
+        return fn_plain
+
+    p = plan
+    bh_k, bw_k = _kernel_extents(p, my, mx)
+    pad_y_t, pad_x_t = p.pad_y + my, p.pad_x + mx
+    T = p.nty * p.ntx
+    tiles = np.arange(T)
+    sy = (tiles // p.ntx) * p.tr
+    sx_raw = (tiles % p.ntx) * p.tc
+    tight = offsets is None and bool((sx_raw % 128).any())
+    sx = sx_raw if tight else (sx_raw // 128) * 128
+    pady2 = max(0, (p.nty - 1) * p.tr + bh_k - (H + pad_y_t))
+    padx2 = max(0, int((sx // 128 * 128).max()) + bw_k - (W + pad_x_t))
+    # offsets read the margin around the base window: edge-replicate for
+    # "clamp" (tap-clamp semantics), zeros otherwise
+    mode = "replicate" if (offsets and border == "clamp") else "constant"
+    padded = F.pad(img.float(), (pad_x_t, padx2, pad_y_t, pady2), mode=mode)
+    sy = torch.from_numpy(sy.astype(np.int32)).to(img.device)
+    sx = torch.from_numpy(sx.astype(np.int32)).to(img.device)
+    Pt = p.tr * p.tc
+    O = 1 if offsets is None else len(offsets)
 
     def fn(x, y):
-        return _sample_static(img, plan, x, y)
+        extra = tuple(x.shape[: x.ndim - 3])
+        if offsets is not None and extra:
+            raise ValueError("offsets mode takes plain (B, Ho, Wo) coords")
+        E = int(np.prod(extra, dtype=np.int64)) if extra else 1
 
+        def tiled(v):  # -> (T, B, E * Pt), candidates major within a lead
+            v = _tile_coords(v.reshape((E, B, Ho, Wo)), p)  # (T, E, B, Pt)
+            return v.permute(0, 2, 1, 3).reshape(T, B, E * Pt)
+
+        out = fused_window_sample_folded(
+            padded, sy, sx,
+            (tiled(x) + float(pad_x_t)).contiguous(),
+            (tiled(y) + float(pad_y_t)).contiguous(),
+            bh=bh_k, bw=bw_k, pad_y=pad_y_t, pad_x=pad_x_t, n_y=H, n_x=W,
+            interpolation=interpolation, border=border, offsets=offsets,
+            base_bw=p.bw if tight else None, off_my=my, off_mx=mx, site=site,
+        )  # (T, B, C, E * Pt) or (T, B, O, C, Pt)
+        out = out.reshape(p.nty, p.ntx, B, O * C, E, p.tr, p.tc)
+        out = out.permute(4, 2, 3, 0, 5, 1, 6)
+        out = out.reshape(E, B, O * C, p.nty * p.tr, p.ntx * p.tc)
+        out = out[..., :Ho, :Wo]
+        if offsets is None:
+            return out.reshape(extra + (B, C, Ho, Wo))
+        return out.reshape(B, O, C, Ho, Wo).transpose(0, 1)
+
+    fn.backend = "kernel"
     return fn
 
 
@@ -255,17 +459,8 @@ def sample_displaced_residual(
     ty = (tiles // p.ntx).to(torch.int32)
     tx = (tiles % p.ntx).to(torch.int32)
 
-    def tile_coords(v):  # (..., Ho, Wo) -> (T, L, tr * tc), edge-padded
-        v = v.reshape(L, p.Ho, p.Wo).float()
-        v = F.pad(
-            v[None], (0, p.ntx * p.tc - p.Wo, 0, p.nty * p.tr - p.Ho),
-            mode="replicate",
-        )[0]
-        v = v.reshape(L, p.nty, p.tr, p.ntx, p.tc).permute(1, 3, 0, 2, 4)
-        return v.reshape(T, L, p.tr * p.tc)
-
-    xt = tile_coords(x)
-    yt = tile_coords(y)
+    xt = _tile_coords(x.reshape(L, p.Ho, p.Wo), p)  # (T, L, tr * tc)
+    yt = _tile_coords(y.reshape(L, p.Ho, p.Wo), p)
 
     # per-(tile, lead) mean displacement -> rounded origin in padded coords
     # (NaN sanitized before the clamp: a NaN origin would index garbage)

@@ -6,7 +6,7 @@ surround360_render/source/test/TestRenderStereoPanorama.cpp, the
 reference's production renderer). Per frame:
 
   side images (N,4,H,W) --(static lens warps, fused window kernel)--> strips
-  ring of N pairs --(28 pair flows, pixflow_tpu)--> novel-view chunks
+  ring of N pairs --(28 pair flows, any flow preset)--> novel-view chunks
   top/bottom fisheyes --(static warps)--> strips --(merged pole flow and
   displacement-following warp)--> deghost composite
   sharpen -> final resize -> stereo equirect (L over R)
@@ -268,7 +268,7 @@ def _side_pair_flows(ctx: RenderContext, overlap_l, overlap_r, state, use_tempor
         prev_flow_r_to_l=state.get("pair_flow_rtl"),
         prev_overlap_l=state.get("prev_overlap_l"),
         prev_overlap_r=state.get("prev_overlap_r"),
-        use_temporal=use_temporal,
+        use_temporal=use_temporal, site="side_flow",
     )
 
     dsf = flow_params.downscale_factor
@@ -382,13 +382,14 @@ def _pole_flow_core(ctx: RenderContext, side_pano, fish, prev, use_temporal):
             else resize_area(prev_flow, (fh, fw)) * scale,
             prev_img0=None if prev_side is None else resize_area(prev_side, (fh, fw)),
             prev_img1=None if prev_fish is None else resize_area(prev_fish, (fh, fw)),
-            use_temporal=use_temporal,
+            use_temporal=use_temporal, site="pole_flow",
         )
         flow = resize_bilinear(flow_small, (rows_f, ext_w)) / scale
     else:
         flow = compute_flow(
             ext_side, ext_fish, flow_params, hint=hints, prev_flow=prev_flow,
             prev_img0=prev_side, prev_img1=prev_fish, use_temporal=use_temporal,
+            site="pole_flow",
         )
 
     # phi-ramped warp of the fisheye toward the sides

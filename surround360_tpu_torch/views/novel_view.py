@@ -224,22 +224,23 @@ def prepare_pair_flows(
     overlap_l, overlap_r, params,
     prev_flow_l_to_r=None, prev_flow_r_to_l=None,
     prev_overlap_l=None, prev_overlap_r=None,
-    use_temporal: bool = False,
+    use_temporal: bool = False, site: str = "",
 ):
     """Asymmetric pair flows (NovelView.cpp:270-299): L->R with hint LEFT,
-    R->L with hint RIGHT, each with its own temporal prior."""
+    R->L with hint RIGHT, each with its own temporal prior. ``site`` labels
+    the flow's kernel launches."""
     B = overlap_l.shape[0]
     dev = overlap_l.device
     flow_l_to_r = compute_flow(
         overlap_l, overlap_r, params,
         hint=torch.full((B,), HINT_LEFT, dtype=torch.int32, device=dev),
         prev_flow=prev_flow_l_to_r, prev_img0=prev_overlap_l,
-        prev_img1=prev_overlap_r, use_temporal=use_temporal,
+        prev_img1=prev_overlap_r, use_temporal=use_temporal, site=site,
     )
     flow_r_to_l = compute_flow(
         overlap_r, overlap_l, params,
         hint=torch.full((B,), HINT_RIGHT, dtype=torch.int32, device=dev),
         prev_flow=prev_flow_r_to_l, prev_img0=prev_overlap_r,
-        prev_img1=prev_overlap_l, use_temporal=use_temporal,
+        prev_img1=prev_overlap_l, use_temporal=use_temporal, site=site,
     )
     return flow_l_to_r, flow_r_to_l

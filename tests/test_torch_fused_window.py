@@ -174,7 +174,8 @@ def test_static_window_samplers_match_jax(interp):
     ey = np.stack([ys, 0.5 * (ys + gy)]).astype(np.float32)
     fj = JW.make_window_sampler(jnp.asarray(img), (H, W), 10, 20, "bilinear",
                                 "clamp", xla_plan=plan, backend="xla")
-    ft = TW.make_window_sampler(_t(img), TW.WindowPlan(*plan))
+    ft = TW.make_window_sampler(_t(img), (H, W), 10, 20, "bilinear", "clamp",
+                                xla_plan=TW.WindowPlan(*plan), backend="xla")
     np.testing.assert_allclose(
         ft(_t(ex), _t(ey)).numpy(), np.asarray(fj(jnp.asarray(ex), jnp.asarray(ey))),
         atol=1e-5,

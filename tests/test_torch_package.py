@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "surround360_tpu_torch.flow.pixflow",
     "surround360_tpu_torch.views.novel_view",
     "surround360_tpu_torch.render.panorama",
+    "surround360_tpu_torch.cli.common",
     "surround360_tpu_torch.cli.render_video",
 ]
 
@@ -61,7 +62,7 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
         "import sys\n"
         "import surround360_tpu_torch.ops.fused_window as fw\n"
         "assert 'triton' not in sys.modules\n"
-        "assert fw._lib is None\n"
+        "assert not fw._LIBS\n"
     )
     proc = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert proc.returncode == 0, proc.stderr
@@ -87,10 +88,14 @@ def _small_inputs():
     return [torch.from_numpy(a) for a in (padded, sy, sx, xt, yt)], kw
 
 
-def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
-    """A CUDA tensor must launch the kernel or raise: without nvcc and
-    without a built library the wrapper raises, and the twin never runs."""
-    monkeypatch.setattr(fw, "_lib", None)
+def _small_folded_inputs():
+    arrays, kw = _small_inputs()
+    arrays[1], arrays[2] = arrays[1][:, 0].contiguous(), arrays[2][:, 0].contiguous()
+    return arrays, dict(kw, interpolation="bilinear", border="clamp")
+
+
+def _without_toolchain(monkeypatch, tmp_path):
+    monkeypatch.setattr(fw, "_LIBS", {})
     monkeypatch.setattr(fw, "_BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -98,14 +103,34 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
     def no_twin(*a, **k):
         raise AssertionError("fell back to the plain twin")
 
-    monkeypatch.setattr(fw, "fused_window_sample_reference", no_twin)
-    monkeypatch.setattr(fw, "window_gather", no_twin)
+    for name in ("fused_window_sample_reference",
+                 "fused_window_sample_folded_reference", "window_gather"):
+        monkeypatch.setattr(fw, name, no_twin)
+
+
+def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
+    """A CUDA tensor must launch the kernel or raise: without nvcc and
+    without a built library the wrapper raises, and the twin never runs."""
+    _without_toolchain(monkeypatch, tmp_path)
     arrays, kw = _small_inputs()
     fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
-    launches = fw.LAUNCHES
+    launches = dict(fw.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fw.fused_window_sample(*fake, **kw)
-    assert fw.LAUNCHES == launches
+    assert dict(fw.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("offsets", [None, ((0, 0), (0, 2), (-2, 0))], ids=["K2", "K3"])
+def test_folded_cuda_tensor_without_library_raises(monkeypatch, tmp_path, offsets):
+    """The same for the lead-folded wrapper (K2 and K3)."""
+    _without_toolchain(monkeypatch, tmp_path)
+    arrays, kw = _small_folded_inputs()
+    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
+    launches = dict(fw.LAUNCHES)
+    margins = dict(off_my=2, off_mx=2) if offsets else {}
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fw.fused_window_sample_folded(*fake, **kw, offsets=offsets, **margins)
+    assert dict(fw.LAUNCHES) == launches
 
 
 def test_other_devices_raise(monkeypatch):
@@ -117,12 +142,17 @@ def test_other_devices_raise(monkeypatch):
 
 def test_cpu_tensor_uses_twin_and_counts_no_launch():
     arrays, kw = _small_inputs()
-    launches = fw.LAUNCHES
+    launches = dict(fw.LAUNCHES)
     out = fw.fused_window_sample(*arrays, **kw, site="test")
     ref = fw.fused_window_sample_reference(*arrays, **kw)
     assert out.shape == (2, 1, 2, 8)
     assert torch.equal(out, ref)
-    assert fw.LAUNCHES == launches
+    folded, fkw = _small_folded_inputs()
+    offs = ((0, 0), (1, -1))
+    out = fw.fused_window_sample_folded(*folded, **fkw, offsets=offs, off_my=1,
+                                        off_mx=1, site="test")
+    assert out.shape == (2, 1, 2, 2, 8)
+    assert dict(fw.LAUNCHES) == launches
 
 
 def test_wrapper_validates_inputs():
@@ -133,6 +163,14 @@ def test_wrapper_validates_inputs():
         fw.fused_window_sample(*bad, **kw)
     with pytest.raises(ValueError, match="unknown interpolation"):
         fw.fused_window_sample(*arrays, **kw, interpolation="nearest")
+    folded, fkw = _small_folded_inputs()
+    with pytest.raises(ValueError, match="sy must be T int32"):
+        fw.fused_window_sample_folded(*arrays, **fkw)
+    with pytest.raises(ValueError, match="bilinear only"):
+        fw.fused_window_sample_folded(*folded, **dict(fkw, interpolation="bicubic"),
+                                      offsets=((0, 0),))
+    with pytest.raises(ValueError, match="exceeds its margin"):
+        fw.fused_window_sample_folded(*folded, **fkw, offsets=((0, 3),), off_mx=2)
 
 
 @pytest.mark.gpu
@@ -168,3 +206,58 @@ def test_kernel_matches_twin_on_gpu():
                 want = fw.fused_window_sample_reference(*dev, **kw)
                 assert bool(torch.isfinite(got).all())
                 assert float((got - want).abs().max()) <= 2e-5, (interp, border, base_bw)
+
+
+def _folded_gpu_cases(rng):
+    """K2 (every interpolation x border, plain and tight windows) and K3
+    (the flow's offset sets at d = 8, 4, 2, 1, both borders) on small
+    shapes, with origins at the array edges, NaN / far coordinates and a
+    sample count that is no multiple of 32."""
+    L, C, Hp, Wp, T, P = 3, 2, 64, 400, 5, 77
+    padded = rng.random((L, C, Hp, Wp), dtype=np.float32)
+
+    def coords(sy, sx, bh, wx):
+        xt = (sx[:, None, None] + rng.uniform(-5, wx + 5, (T, L, P))).astype(np.float32)
+        yt = (sy[:, None, None] + rng.uniform(-5, bh + 5, (T, L, P))).astype(np.float32)
+        xt[2, :, :3] = [np.nan, 1e6, -1e6]
+        yt[3, :, :3] = [-1e6, np.nan, 1e6]
+        return xt, yt
+
+    base = dict(pad_y=4, pad_x=6, n_y=Hp - 12, n_x=Wp - 20)
+    for interp in ("bicubic", "bilinear"):
+        for border in ("constant", "clamp"):
+            for bw, base_bw in ((128, None), (256, 61)):
+                bh, wx = 24, base_bw or bw
+                sy = rng.integers(0, Hp - bh + 1, T).astype(np.int32)
+                sx = rng.integers(0, Wp - wx + 1, T).astype(np.int32)
+                sy[0], sx[0], sy[1], sx[1] = 0, 0, Hp - bh, Wp - wx
+                kw = dict(base, bh=bh, bw=bw, interpolation=interp, border=border,
+                          base_bw=base_bw)
+                yield (padded, sy, sx, *coords(sy, sx, bh, wx)), kw
+    dirs = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+    for d in (8, 4, 2, 1):
+        offs = ((0, 0),) + tuple((py * d, px * d) for py, px in dirs)
+        for border in ("constant", "clamp"):
+            bh, bw = 24 + 2 * d, 128 + (128 if d > 4 else 0)
+            sy = rng.integers(0, Hp - bh + 1, T).astype(np.int32)
+            sx = rng.integers(0, (Wp - bw) // 128 + 1, T).astype(np.int32) * 128
+            sy[0], sx[0] = 0, 0
+            kw = dict(base, bh=bh, bw=bw, interpolation="bilinear", border=border,
+                      offsets=offs, off_my=d, off_mx=d)
+            yield (padded, sy, sx, *coords(sy, sx, bh, bw)), kw
+
+
+@pytest.mark.gpu
+def test_folded_kernels_match_twin_on_gpu():
+    """K2 and K3 against their twin on the card, max-abs 2e-5 (same f32
+    tap math). Runs on a GPU machine (see README); skips elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(1)
+    for arrays, kw in _folded_gpu_cases(rng):
+        dev = [torch.from_numpy(a).cuda() for a in arrays]
+        got = fw.fused_window_sample_folded(*dev, **kw)
+        torch.cuda.synchronize()
+        want = fw.fused_window_sample_folded_reference(*dev, **kw)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 2e-5, kw

@@ -127,3 +127,21 @@ def test_render_frame_two_frame_chain_matches_jax(scene):
         left = e[:, :140]
         assert psnr(left[:, band], expect[:, band]) > 28.0
         assert psnr(left[:, 4:-4], expect_fs[:, 4:-4]) > 33.0
+
+
+def test_default_flow_presets_render_matches_jax():
+    """RenderConfig()'s default flow presets (pixflow_low on the ring and
+    the poles) render at the test geometry, as in the JAX package."""
+    jrig = jax_rig().rescaled(0.125)
+    trig = make_ring_rig().rescaled(0.125)
+    kw = dict(eqr_width=280, eqr_height=140, enable_top=True, enable_bottom=True)
+    jcfg, tcfg = JP.RenderConfig(**kw), TP.RenderConfig(**kw)
+    assert tcfg.side_flow_alg == tcfg.polar_flow_alg == jcfg.side_flow_alg == "pixflow_low"
+    views = render_camera_views(jrig)
+    side = np.stack([views[jrig.ids.index(s)] for s in jrig.side_ids])
+    ins = (side, views[jrig.top_camera_index], views[jrig.bottom_camera_index])
+    want = JP.render_frame(JP.build_render_context(jrig, jcfg), *map(jnp.asarray, ins))[0]
+    got = TP.render_frame(TP.build_render_context(trig, tcfg), *map(torch.from_numpy, ins))[0]
+    e_j, e_t = np.asarray(want["equirect"]), got["equirect"].numpy()
+    assert e_t.shape == e_j.shape == (3, 280, 280) and np.isfinite(e_t).all()
+    assert psnr(e_t, e_j) >= 40.0
