@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure exits non-zero before the
-final line):
+kernels line; a phase-3 failure is printed at once and fails the run
+after phase 9, so that the measurements still print):
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off (the reference is float32).
@@ -15,7 +16,10 @@ final line):
    with per-tile origins); K3 (the flow's offset sets at d = 8, 4, 2, 1,
    clamp and constant borders, one x tile and several); all with origins
    at the array edges, NaN and +-1e6 coordinates and a sample count that
-   is no multiple of 32.
+   is no multiple of 32. Then the staged kernels' own paths: tap boxes
+   far above a block's shared memory (the row-band walk), a (tile, lead)
+   whose coordinates are all non-finite (an empty box), windows reaching
+   past the array (boxes clipped at its edges) and 16 offsets.
 4. main path: the 6k quality preset (6300x3072 per eye from 2048 px
    cameras, 6144x6144 final), pixflow_tpu flows, both poles merged,
    sharpening and the final resize; frame 0, then frame 1 chained through
@@ -24,7 +28,12 @@ final line):
    peak memory and every kernel's launches.
 5. main-path K1 vs twin: the recorded call of each call site (the one
    with the most samples), rerun through the plain PyTorch twin; max-abs
-   <= 2e-5; kernel and twin ms.
+   <= 2e-5. Per call: launches per frame, kernel ms with a warm L2 and
+   with a cold one (a 128 MiB write before each launch), twin ms, the
+   yardstick (one torch.nn.functional.grid_sample call over the same
+   samples, ms) and the bound: the larger of bytes / 3.35 TB/s and FLOPs
+   / 67 TFLOP/s, the bytes counting the source pixels the taps read (see
+   call_bounds).
 6. quality: one more frame at the same geometry without sharpening or
    final resize; full-sphere PSNR per eye against the analytic reference
    must reach 40 dB.
@@ -38,10 +47,10 @@ final line):
    pickle into another directory, within 1/255 of the chained frame 1.
 8. flow sites: at each flow site, for each offset set (d = 8, 4, 2, 1),
    the recorded K3 call with the most samples (the finest pyramid level
-   that ranks with that set) against the twin (max-abs <= 2e-5, kernel
-   and twin ms); and K2 at the 6k side-flow level-0 geometry (the flow's
-   16-column tiles: tight-x, 13 folded candidates), a forced call that
-   no launch count includes.
+   that ranks with that set) against the twin (max-abs <= 2e-5, and the
+   numbers of phase 5); and K2 at the 6k side-flow level-0 geometry (the
+   flow's 16-column tiles: tight-x, 13 folded candidates), a forced call
+   that no launch count includes.
 9. quality of a pixflow_tpu_offsets frame, as phase 6.
 
 Then the kernels' JSON line, the card's name and power limit, and last
@@ -62,6 +71,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 TOL = 2e-5  # kernel vs twin: same f32 tap math, FMA contraction differs
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+FLUSH_BYTES = 128 * 2**20  # written before a cold call: > the 50 MB L2
+SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of timed calls
+FRAMES = 2  # frames of each product path (phase 4 and phase 7)
 PSNR_MIN = 40.0  # the reference package's preset-quality target
 PRESET = "6k"
 K1_SITES = ("side_projection", "novel_view", "fisheye_strip", "pole_warp")
@@ -85,19 +99,163 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
+_FLUSH = []
+
+
+def cuda_ms(fn, reps: int = 5, cold: bool = False) -> float:
+    """Device ms per call of ``fn``: CUDA events around each call, queued
+    behind a ~10 ms sleep kernel so that the host's launch cost stays out
+    of the time. ``cold``: a 128 MiB scratch write before each call
+    evicts the L2, as the main path's large calls find it."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.empty(FLUSH_BYTES // 4, device="cuda"))
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        if cold:
+            _FLUSH[0].fill_(1.0)
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def flops_per_sample(interpolation: str, C: int, O: int = 1) -> int:
+    """Hand count of one sample's float operations: both axes' tap weights
+    once (bicubic: floor, fraction and 4 Keys weights of 5-7 operations,
+    27 an axis; bilinear: floor, fraction, 1 - t, 3 an axis), then for
+    each of the O fields and C channels one multiply-add (2 operations)
+    per tap and one per tap row."""
+    weights, ty, tx = (27, 4, 4) if interpolation == "bicubic" else (3, 2, 2)
+    return 2 * weights + O * C * 2 * (ty * tx + ty)
+
+
+def window_union_px(sy, sx, bh: int, wx: int, Hp: int, Wp: int):
+    """Source pixels inside the union of the windows, clipped to the
+    (Hp, Wp) array, per lead: sy, sx (T, L) origins give (L,) counts;
+    per-tile (T,) origins, shared by every lead, give one count."""
+    import torch
+
+    sy = (sy[:, None] if sy.ndim == 1 else sy).long()
+    sx = (sx[:, None] if sx.ndim == 1 else sx).long()
+    T, L = sy.shape
+    y0, y1 = sy.clamp(0, Hp), (sy + bh).clamp(0, Hp)
+    x0, x1 = sx.clamp(0, Wp), (sx + wx).clamp(0, Wp)
+    lead = torch.arange(L, device=sy.device).expand(T, L).flatten()
+    diff = torch.zeros((L, Hp + 1, Wp + 1), dtype=torch.int32, device=sy.device)
+    one = torch.ones(T * L, dtype=torch.int32, device=sy.device)
+    for ys, xs, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        diff.index_put_((lead, ys.flatten(), xs.flatten()), sign * one,
+                        accumulate=True)
+    cover = diff.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32)
+    return (cover[:, :Hp, :Wp] > 0).sum(dim=(1, 2))
+
+
+def touched_px(args, kw, tiles: int = 64) -> int:
+    """Source pixels (summed over the leads) that the call's counted taps
+    read with a nonzero weight, offsets included: the twin's tap geometry
+    (window or interior test, borders, non-finite samples dropped) marked
+    into one flag per pixel, ``tiles`` tiles at a time."""
+    import torch
+
+    from surround360_tpu_torch.ops.fused_window import axis_taps
+
+    padded, sy, sx, xt, yt = args
+    L, _, Hp, Wp = padded.shape
+    T = xt.shape[0]
+    offs = kw.get("offsets") or ((0, 0),)
+    wx = kw["bw"] if (kw.get("base_bw") is None or kw.get("offsets")) else kw["base_bw"]
+    my, mx = kw.get("off_my", 0), kw.get("off_mx", 0)
+    cubic, clamp = kw["interpolation"] == "bicubic", kw["border"] == "clamp"
+    seen = torch.zeros(L * Hp * Wp, dtype=torch.bool, device=xt.device)
+    lead = torch.arange(L, device=xt.device)[None, :, None]
+    for t0 in range(0, T, tiles):
+        x, y = xt[t0:t0 + tiles], yt[t0:t0 + tiles]
+        oy, ox = (o[t0:t0 + tiles] for o in (sy, sx))
+        oy, ox = ((o[:, None] if o.ndim == 1 else o)[..., None] for o in (oy, ox))
+        finite = torch.isfinite(x) & torch.isfinite(y)
+        x, y = torch.where(finite, x, 0.0), torch.where(finite, y, 0.0)
+        ty = axis_taps(y, oy + my, kw["bh"] - 2 * my, kw["pad_y"], kw["n_y"], cubic, clamp)
+        tx = axis_taps(x, ox + mx, wx - 2 * mx, kw["pad_x"], kw["n_x"], cubic, clamp)
+        for dy, dx in offs:
+            for iy, wy in ty:
+                iy = iy + dy
+                for ix, wxx in tx:
+                    ix = ix + dx
+                    hit = (finite & (wy != 0) & (wxx != 0) & (iy >= 0) & (iy < Hp)
+                           & (ix >= 0) & (ix < Wp))
+                    seen[((lead * Hp + iy) * Wp + ix)[hit]] = True
+    return int(seen.sum())
+
+
+def call_bounds(args, kw) -> dict:
+    """What one call must move and compute, and the least time an H100
+    could take for it: the larger of bytes / 3.35 TB/s and FLOPs /
+    67 TFLOP/s. Bytes: coordinates (8 B a sample), window origins (8 B a
+    window) and outputs (4 B each) once, and the source pixels that the
+    taps read (:func:`touched_px`) once. ``window_src_bytes``, beside it,
+    is the source as the whole padded array or, where smaller, the union
+    of the call's windows. FLOPs: :func:`flops_per_sample`."""
+    padded, sy, sx, xt, _ = args
+    L, C, Hp, Wp = padded.shape
+    T, _, P = xt.shape
+    offs = kw.get("offsets")
+    O = len(offs) if offs else 1
+    wx = kw["bw"] if (kw.get("base_bw") is None or offs) else kw["base_bw"]
+    union = window_union_px(sy, sx, kw["bh"], wx, Hp, Wp)
+    union_px = int(union.sum()) if sy.ndim == 2 else int(union[0]) * L
+    samples = T * L * P
+    src_bytes = 4 * C * touched_px(args, kw)
+    nbytes = 8 * samples + 8 * sy.numel() + 4 * samples * O * C + src_bytes
+    flops = samples * flops_per_sample(kw["interpolation"], C, O)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bytes=nbytes, flops=flops, src_bytes=src_bytes,
+                window_src_bytes=4 * C * min(union_px, L * Hp * Wp),
+                bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def library_call(args, kw):
+    """The yardstick: ONE ``torch.nn.functional.grid_sample`` call over the
+    same samples (the call's bicubic or bilinear, align_corners=True,
+    zeros padding, coordinates normalised from padded pixels, the
+    (T, L, P) samples as an (L, 1, T * P, 2) grid; K3's O offsets folded
+    in as O x T x P points of coordinate + offset). It ignores the
+    windows: it times the same work and is no parity check. Returns
+    (call, to_twin_layout)."""
+    import torch
+    import torch.nn.functional as F
+
+    padded, _, _, xt, yt = args
+    L, C, Hp, Wp = padded.shape
+    T, _, P = xt.shape
+    offs = kw.get("offsets")
+    x = xt.permute(1, 0, 2).double()  # (L, T, P)
+    y = yt.permute(1, 0, 2).double()
+    if offs:
+        o = torch.tensor(offs, dtype=torch.float64, device=xt.device)
+        x = x[:, None] + o[None, :, 1, None, None]  # (L, O, T, P)
+        y = y[:, None] + o[None, :, 0, None, None]
+    grid = torch.stack([x * (2.0 / (Wp - 1)) - 1.0, y * (2.0 / (Hp - 1)) - 1.0], -1)
+    grid = grid.float().reshape(L, 1, -1, 2).contiguous()
+
+    def call():
+        return F.grid_sample(padded, grid, mode=kw["interpolation"],
+                             padding_mode="zeros", align_corners=True)
+
+    def to_twin_layout(out):  # (L, C, 1, [O x] T x P) -> the twin's layout
+        if offs:
+            return out.reshape(L, C, len(offs), T, P).permute(3, 0, 2, 1, 4)
+        return out.reshape(L, C, T, P).permute(2, 0, 1, 3)
+
+    return call, to_twin_layout
 
 
 def phase_device():
@@ -126,8 +284,11 @@ def phase_build():
     for kernel in fw.KERNELS:
         fw._load_library(kernel)
     for source, secs in seconds.items():
-        log(f"[2 build] {source} built in {secs:.1f} s")
+        log(f"[2 build] {source}: nvcc {secs:.1f} s")
+        for line in fw.ptxas_report(source):
+            log(f"[2 build]   ptxas: {line}")
     log(f"[2 build] all sources in {time.perf_counter() - t0:.1f} s (parallel)")
+    return seconds
 
 
 def _edge_coords(rng, sy, sx, bh, wx, shape):
@@ -188,6 +349,68 @@ def _small_cases(rng):
                 yield "fused_window_offsets", f"d={d}/{border}/ntx={ntx}", (
                     padded2, sy, sx,
                     *_edge_coords(rng, sy[:, None], sx[:, None], bh, bw, (T, L, P))), kw
+    yield from _edge_cases(rng)
+
+
+def _edge_cases(rng):
+    """(kernel, name, arrays, kwargs) for the staged kernels' own paths:
+    tap boxes far above the shared-memory budget (the row-band walk), a
+    (tile, lead) whose coordinates are all non-finite (an empty box),
+    windows reaching past the array (boxes clipped at its edges), more
+    samples than one block takes, and 16 offsets."""
+    L, T, P = 2, 4, 3000
+    Hp, Wp = 260, 340
+    big = rng.random((L, 4, Hp, Wp), dtype=np.float32)
+    base = dict(pad_y=3, pad_x=5, n_y=Hp - 6, n_x=Wp - 10)
+    for interp, border in (("bicubic", "constant"), ("bicubic", "clamp"),
+                           ("bilinear", "constant")):
+        # 240 x 320 windows, taps all over them: a 1.2 MB box at C = 4
+        kw = dict(base, bh=240, bw=320, interpolation=interp, border=border,
+                  base_bw=None)
+        sy = rng.integers(0, Hp - 240 + 1, (T, L)).astype(np.int32)
+        sx = rng.integers(0, Wp - 320 + 1, (T, L)).astype(np.int32)
+        xt, yt = _edge_coords(rng, sy, sx, 240, 320, (T, L, P))
+        xt[1, 0] = np.nan  # every coordinate of (tile 1, lead 0)
+        yield "fused_window_sample", f"edge/bands+empty/{interp}/{border}", (
+            big, sy, sx, xt, yt), kw
+        sy, sx = sy[:, 0].copy(), sx[:, 0].copy()
+        xt, yt = _edge_coords(rng, sy[:, None], sx[:, None], 240, 320, (T, L, P))
+        yt[1] = np.nan  # every coordinate of tile 1
+        yield "fused_window_folded", f"edge/bands+empty/{interp}/{border}", (
+            big, sy, sx, xt, yt), kw
+        # 48 x 64 windows reaching past every edge of the array
+        kw = dict(base, bh=48, bw=64, interpolation=interp, border=border,
+                  base_bw=None)
+        sy = np.array([[-20, Hp - 30], [-5, 100], [Hp - 10, -40], [7, Hp - 48]],
+                      np.int32)
+        sx = np.array([[-30, Wp - 20], [Wp - 60, -10], [-50, 90], [Wp - 64, 3]],
+                      np.int32)
+        yield "fused_window_sample", f"edge/clipped/{interp}/{border}", (
+            big, sy, sx, *_edge_coords(rng, sy, sx, 48, 64, (T, L, 517))), kw
+        sy, sx = sy[:, 0].copy(), sx[:, 0].copy()
+        yield "fused_window_folded", f"edge/clipped/{interp}/{border}", (
+            big, sy, sx,
+            *_edge_coords(rng, sy[:, None], sx[:, None], 48, 64, (T, L, 517))), kw
+    src2 = rng.random((L, 2, Hp, Wp), dtype=np.float32)
+    dirs = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+    nine = ((0, 0),) + tuple((py * 8, px * 8) for py, px in dirs)
+    sixteen = ((0, 0),) + dirs + tuple((py * 2, px * 2) for py, px in dirs[:7])
+    for border in ("constant", "clamp"):
+        kw = dict(pad_y=9, pad_x=9, n_y=Hp - 18, n_x=Wp - 18, bh=200, bw=256,
+                  interpolation="bilinear", border=border, offsets=nine,
+                  off_my=8, off_mx=8)
+        sy = rng.integers(0, Hp - 200 + 1, T).astype(np.int32)
+        sx = np.array([0, 0, 0, 0], np.int32)
+        xt, yt = _edge_coords(rng, sy[:, None], sx[:, None], 200, 256, (T, L, P))
+        xt[1] = np.nan
+        yield "fused_window_offsets", f"edge/bands+empty/d=8/{border}", (
+            src2, sy, sx, xt, yt), kw
+        kw = dict(kw, bh=40, bw=128, offsets=sixteen, off_my=2, off_mx=2)
+        sy = np.array([-12, Hp - 25, 100, Hp - 40], np.int32)
+        sx = np.array([0, 256, 128, 256], np.int32)  # 256 + 128 > Wp
+        yield "fused_window_offsets", f"edge/clipped/O=16/{border}", (
+            src2, sy, sx,
+            *_edge_coords(rng, sy[:, None], sx[:, None], 40, 128, (T, L, 700))), kw
 
 
 def _twin_call(kernel):
@@ -199,9 +422,13 @@ def _twin_call(kernel):
 
 
 def phase_small():
+    """Every small case, kernel vs twin. Returns (worst max-abs per kernel,
+    the failed cases); a failure is printed here and fails the run at its
+    end, so that the later phases still measure."""
     import torch
 
     worst: dict = {}
+    failed = []
     rng = np.random.default_rng(0)
     for kernel, name, arrays, kw in _small_cases(rng):
         call, twin = _twin_call(kernel)
@@ -210,14 +437,16 @@ def phase_small():
         torch.cuda.synchronize()
         want = twin(*dev, **kw)
         err = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or err > TOL:
-            raise AssertionError(f"{kernel} vs twin {name}: max-abs {err}")
-        n, w = worst.get(kernel, (0, 0.0))
-        worst[kernel] = (n + 1, max(w, err))
-    for kernel, (n, err) in worst.items():
+        bad = not torch.isfinite(got).all() or err > TOL
+        if bad:
+            failed.append(f"{kernel} vs twin {name}: max-abs {err}")
+            log(f"[3 small] FAILED {failed[-1]}")
+        n, n_bad, w = worst.get(kernel, (0, 0, 0.0))
+        worst[kernel] = (n + 1, n_bad + bad, max(w, err))
+    for kernel, (n, n_bad, err) in worst.items():
         log(f"[3 small] {kernel} vs twin, {n} cases: max-abs {err:.3g} "
-            f"(<= {TOL})")
-    return {k: v[1] for k, v in worst.items()}
+            + (f"({n_bad} FAILED)" if n_bad else f"(<= {TOL})"))
+    return {k: v[2] for k, v in worst.items()}, failed
 
 
 def _render_inputs(rig, device):
@@ -283,7 +512,7 @@ def phase_main_path(rig, preset, device):
     times = []
     state = None
     fw.reset_launch_counts()
-    for frame in range(2):
+    for frame in range(FRAMES):
         t0 = time.perf_counter()
         out, state = render_frame(ctx, *inputs, state=state,
                                   use_temporal=frame > 0)
@@ -313,36 +542,48 @@ def phase_main_path(rig, preset, device):
     return ctx, inputs, views, launches, record, times
 
 
-def _site_check(phase, key, record):
-    """Recorded call vs twin; returns (max-abs, kernel ms, twin ms)."""
+def _site_check(phase, key, record, per_frame):
+    """Recorded call vs twin, and its times: the kernel warm and with a
+    cold L2, the twin, the grid_sample yardstick, beside the call's bound.
+    Returns the site's entry of the kernels line."""
     kernel, site, _ = key
-    args, kw, got = record[key]
+    args, kw, got = record[key][:3]
     call, twin = _twin_call(kernel)
     want = twin(*args, **kw)
     err = float((got - want).abs().max())
+    del want
     if err > TOL:
         raise AssertionError(f"{kernel} vs twin at {site}: max-abs {err}")
-    k_ms = cuda_ms(lambda: call(*args, **kw))
-    p_ms = cuda_ms(lambda: twin(*args, **kw))
+    library, _ = library_call(args, kw)
+    r = dict(site=site, launches_per_frame=per_frame, max_abs_err=err,
+             ms=cuda_ms(lambda: call(*args, **kw)),
+             cold_ms=cuda_ms(lambda: call(*args, **kw), cold=True),
+             plain_ms=cuda_ms(lambda: twin(*args, **kw)),
+             library_ms=cuda_ms(library), **call_bounds(args, kw))
     T, L, P = args[3].shape
     wx = kw["base_bw"] or kw["bw"]
     offs = kw.get("offsets")
     shape = (f"O={len(offs)} d={kw['off_my']} ntx={len(args[2].unique())}"
              if offs else "O=1")
-    log(f"[{phase}] {kernel} at {site}: T={T} L={L} C={args[0].shape[1]} "
-        f"P={P} {shape} bh={kw['bh']} wx={wx} src={tuple(args[0].shape)}: "
-        f"max-abs {err:.3g}, kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms")
-    return err, k_ms, p_ms
+    r["shape"] = (f"T={T} L={L} C={args[0].shape[1]} P={P} {shape} "
+                  f"bh={kw['bh']} wx={wx} src={tuple(args[0].shape)} "
+                  f"{kw['interpolation']}/{kw['border']}")
+    log(f"[{phase}] {kernel} at {site}: {r['shape']}: {per_frame:g} "
+        f"launches/frame, max-abs {err:.3g}, kernel {r['ms']:.4f} ms (cold L2 "
+        f"{r['cold_ms']:.4f}), twin {r['plain_ms']:.3f} ms, grid_sample "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB with {r['src_bytes'] / 1e6:.1f} "
+        f"MB of source taps, {r['window_src_bytes'] / 1e6:.1f} MB in the windows; "
+        f"{r['flops'] / 1e9:.2f} GFLOP), "
+        f"{r['bound_ms'] / r['ms']:.0%} of bound")
+    return r
 
 
 def phase_sites(record):
-    """Recorded main-path K1 calls: kernel vs twin, and both times."""
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
-    for site in K1_SITES:
-        err, k_ms, p_ms = _site_check("5 sites", ("fused_window_sample", site, None),
-                                      record)
-        worst, ms, plain_ms = max(worst, err), ms + k_ms, plain_ms + p_ms
-    return worst, ms, plain_ms
+    """Recorded main-path K1 calls (one per site): kernel vs twin, times,
+    yardstick and bound, and the site's launches per frame."""
+    keys = [("fused_window_sample", site, None) for site in K1_SITES]
+    return [_site_check("5 sites", k, record, record[k][3] / FRAMES) for k in keys]
 
 
 def _psnr_full_sphere(qctx, inputs, expect):
@@ -498,7 +739,8 @@ def phase_flow_sites(record, device):
                   key=lambda k: (k[1], -d(k[2])))  # by site, then d
     if {k[1] for k in keys} != set(FLOW_SITES):
         raise AssertionError(f"K3 records at {keys}, want {FLOW_SITES}")
-    k3 = [_site_check("8 flow sites", k, record) for k in keys]
+    k3 = [_site_check("8 flow sites", k, record, record[k][3] / FRAMES)
+          for k in keys]
     # the side flow's level 0 at 6k: 14 pairs, 331x227, halos 39 / 56,
     # the flow's 16-column tiles (tight-x), 13 folded candidates
     g = torch.Generator(device=device).manual_seed(0)
@@ -516,23 +758,47 @@ def phase_flow_sites(record, device):
     fw.RECORD = {}
     fn(xs, ys)
     rec, fw.RECORD = fw.RECORD, None
-    k2 = _site_check("8 flow sites", (fw.K2, "side_flow_level0", None), rec)
+    k2 = _site_check("8 flow sites", (fw.K2, "side_flow_level0", None), rec, 0)
     return k3, k2
+
+
+def _kernel_entry(name, launches, small_err, sites, nvcc_s):
+    """One kernel of the kernels line: times summed over its recorded
+    calls (``sites``), each of which is listed with its own numbers."""
+    total = lambda k: sum(r[k] for r in sites)
+    bytes_ms = sum(r["bytes"] for r in sites) / HBM_BYTES_PER_S * 1e3
+    flops_ms = sum(r["flops"] for r in sites) / F32_FLOPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": max([small_err] + [r["max_abs_err"] for r in sites]),
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": total("library_ms"),
+        "cold_ms": total("cold_ms"),
+        "nvcc_s": nvcc_s[os.path.basename(SOURCES[name])],
+        "sites": sites,
+    }
 
 
 def main():
     import torch
 
     smi = phase_device()
-    phase_build()
-    small = phase_small()
+    nvcc_s = phase_build()
+    small, small_failed = phase_small()
     from surround360_tpu_torch.geometry.rig import make_ring_rig
 
     device = torch.device("cuda", 0)
     rig = make_ring_rig()
     ctx, inputs, views, render_launches, record, _ = phase_main_path(
         rig, PRESET, device)
-    k1_err, k1_ms, k1_plain = phase_sites(record)
+    k1 = phase_sites(record)
     del record
     expect = phase_quality(ctx, inputs, device, "pixflow_tpu", "6 quality")
     cli_launches, record = phase_cli(rig, views)
@@ -540,31 +806,22 @@ def main():
     k3, k2 = phase_flow_sites(record, device)
     del record
     phase_quality(ctx, inputs, device, "pixflow_tpu_offsets", "9 quality", expect)
-    # ms / plain_ms: kernel and twin times summed over the recorded calls
-    # (K1: one per call site, phase 5; K3: one per flow site and offset
-    # set, phase 8), and K2's forced call in phase 8. launches: the two
-    # product paths' runs (phase 4's render_frame and phase 7's CLI),
-    # counted from 0 just before each; K2 has no product caller, so 0
+    if small_failed:
+        raise AssertionError(f"phase 3 failed: {small_failed}")
+    # ms, cold_ms, plain_ms, library_ms, bound_ms: summed over the recorded
+    # calls (K1: the largest per call site, phase 5; K3: the largest per
+    # flow site and offset set, phase 8; K2: its forced call in phase 8).
+    # launches: the two product paths' runs (phase 4's render_frame and
+    # phase 7's CLI), counted from 0 just before each; K2 has no product
+    # caller, so 0
     launches = {k: render_launches[k] + cli_launches[k] for k in render_launches}
     entries = [
-        ("fused_window_sample", launches["fused_window_sample"],
-         max(small["fused_window_sample"], k1_err), k1_ms, k1_plain),
-        ("fused_window_folded", launches["fused_window_folded"],
-         max(small["fused_window_folded"], k2[0]), k2[1], k2[2]),
-        ("fused_window_offsets", launches["fused_window_offsets"],
-         max([small["fused_window_offsets"]] + [r[0] for r in k3]),
-         sum(r[1] for r in k3), sum(r[2] for r in k3)),
+        _kernel_entry(name, launches[name], small[name], sites, nvcc_s)
+        for name, sites in (("fused_window_sample", k1),
+                            ("fused_window_folded", [k2]),
+                            ("fused_window_offsets", k3))
     ]
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": SOURCES[name],
-        "replaces": REPLACES[name],
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    } for name, launches, err, ms, plain_ms in entries]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ The loop is one frame deep, as in the reference: frame t is dispatched
 before frame t-1's outputs are fetched, PNG encoding and state pickling
 run on a writer thread that also prefetches frame t+1's inputs, writer
 errors surface at the next frame, and the in-flight frame is flushed on
-abort. It runs on the GPU when there is one, else on the CPU. A
+abort. It runs on the GPU (``--device cuda``, the default) and raises
+when there is none; ``--device cpu`` renders on the CPU. A
 :class:`~.common.StageTimer` collects the loop's host-side stages (see
 :func:`render_video`) and the breakdown is logged at the end.
 
@@ -84,6 +85,20 @@ def _check_ported(config: RenderConfig, save_debug_images: bool,
         raise NotImplementedError("--profile_stages is ROADMAP A11b")
 
 
+def _resolve_device(name: str) -> torch.device:
+    """The render device; CUDA must be there when asked for (no silent
+    fall back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available (pass --device cpu to "
+            "render on the CPU)"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device: {name}")
+    return device
+
+
 def render_video(
     rig_json: str,
     imgs_dir: str,
@@ -97,9 +112,11 @@ def render_video(
     save_debug_images: bool = False,
     profile_stages: bool = False,
     timer: StageTimer | None = None,
+    device: str = "cuda",
 ):
-    """Render frames [start_frame, end_frame]; returns the last frame's
-    temporal state (tensors on the GPU when there is one, else the CPU).
+    """Render frames [start_frame, end_frame] on ``device`` ("cuda", the
+    default, raises when CUDA is not available; "cpu" renders on the CPU);
+    returns the last frame's temporal state (tensors on that device).
 
     ``timer`` (a fresh one when None) receives one entry per frame for each
     stage: ``decode`` (the cameras' PNGs, on the writer thread, overlapping
@@ -111,7 +128,7 @@ def render_video(
     del pole_masks_dir  # read by pole removal only (ROADMAP A10)
     _check_ported(config, save_debug_images, profile_stages)
     timer = StageTimer() if timer is None else timer
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = _resolve_device(device)
     rig = load_rig(rig_json)
     ctx = build_render_context(rig, config)
     os.makedirs(os.path.join(output_dir, "eqr_frames"), exist_ok=True)
@@ -281,6 +298,8 @@ def main(argv=None, timer: StageTimer | None = None):
     p.add_argument("--save_debug_images", action="store_true")
     p.add_argument("--profile_stages", action="store_true",
                    help="log a per-stage device-time table before rendering")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA) or cpu")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
     setup_logging(args.verbose)
@@ -318,6 +337,7 @@ def main(argv=None, timer: StageTimer | None = None):
         save_debug_images=args.save_debug_images,
         profile_stages=args.profile_stages,
         timer=timer,
+        device=args.device,
     )
 
 

@@ -1,5 +1,5 @@
 // Lead-folded windowed resampling with integer offset fields, for Hopper
-// (sm_90a).
+// (sm_90a): K2 and K3.
 //
 // Replaces the Pallas TPU kernel
 //   surround360_tpu/ops/pallas_remap.py::fused_window_sample
@@ -26,136 +26,180 @@
 // the offset is added (pallas_remap.py:186-187); "clamp" + bicubic clamps
 // each tap to the source.
 //
-// Design. The TPU kernel shares one interpolation-matrix build across all
-// O fields. Here one thread per (t, l, p) computes the base tap geometry
-// (weights and the interior test) once in registers and reuses it for all
-// O x C outputs, reading padded[l, c, iy + oy, ix + ox] through the
-// read-only cache; neighbouring p read neighbouring columns, and each
-// output row (o, c) is written coalesced along p.
+// What bounds it on this card: device-memory bytes, and the output above
+// all: a K3 sample writes O x C x 4 B (72 B for the flow's 9 offsets x 2
+// channels) against 8 B of coordinates and ~2 source pixels. The first
+// design read 4 scalar taps per output (72 loads per sample; at d = 1 the
+// nine 2x2 patches cover one 4x4 neighbourhood, 16 pixels read 36 times)
+// from L1/L2, so load issue and cache traffic set its time.
 //
-// What bounds it on this card: every output is 4 scattered 4-byte loads
-// (bilinear), so a sample costs O * C * 16 bytes of L1/L2 traffic for
-// ~30 FLOPs per output; it is bound by load latency and cache traffic, not
-// by arithmetic.
-//
-// Robustness: a non-finite coordinate gives zero samples; the window test
-// is done in float before any integer index is formed, so far-away
-// coordinates never produce an index; every read is guarded by
-// 0 <= iy + oy < Hp, 0 <= ix + ox < Wp; offsets into `padded` are 64-bit.
+// What this design does about it (window_common.cuh for the common
+// steps): a block per tile, lead and band of the tile's rows stages the
+// box of its own base taps, clipped to the interior and widened by the
+// offsets' reach, into shared memory as float2 at C = 2 (K2: the box of
+// its taps, as K1). Each sample computes its base tap geometry once and
+// derives all O fields from shared memory (4 shared loads a field), the
+// offsets unrolled over a compile-time bound with the (oy, ox) pairs as
+// kernel parameters. Each output row (o, c) is written coalesced along p;
+// the output, not the source, is most of what K3 moves: forming the d = 1
+// round's nine fields from one 4x4 patch in registers (16 shared loads,
+// not 36) made it no faster on the H100.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "window_common.cuh"
 
 namespace {
 
+using namespace s360;
+
 constexpr int kMaxOffsets = 16;
-constexpr float kA = -0.75f;
 
 struct Offsets {
   int n;
   int oy[kMaxOffsets];
   int ox[kMaxOffsets];
+  int oy_min, oy_max, ox_min, ox_max;
 };
 
-__device__ __forceinline__ float k01(float s) {
-  return ((kA + 2.0f) * s - (kA + 3.0f)) * s * s + 1.0f;
+// A field's output: stored by the first band of a box, added to by the
+// later ones (K3's boxes take one band on the product path, so its O x C
+// sums wait in device memory rather than in registers).
+__device__ __forceinline__ void put(float* q, float v, bool first) {
+  *q = first ? v : *q + v;
 }
 
-__device__ __forceinline__ float k12(float s) {
-  return ((kA * s - 5.0f * kA) * s + 8.0f * kA) * s - 4.0f * kA;
-}
-
-// Taps of one axis. v: coordinate in padded units; origin/extent: the
-// window's interior; pad/n: where the source lies in padded units. Writes
-// up to 4 (index, weight, ok) triples; taps outside the interior (or past
-// the tap count) get ok = false and weight 0.
-__device__ __forceinline__ void axis_taps(
-    float v, int origin, int extent, int pad, int n, bool bicubic, bool clamp,
-    int idx[4], float w[4], bool ok[4]) {
-  if (clamp && !bicubic) {
-    v = fminf(fmaxf(v - (float)pad, 0.0f), (float)(n - 1)) + (float)pad;
-  } else if (clamp) {
-    // beyond these bounds every tap clamps onto the same border pixel
-    v = fminf(fmaxf(v, (float)(pad - 3)), (float)(pad + n + 2));
-  }
-  float f = floorf(v);
-  const float t = v - f;
-  if (bicubic) {
-    w[0] = k12(t + 1.0f);
-    w[1] = k01(t);
-    w[2] = k01(1.0f - t);
-    w[3] = k12(2.0f - t);
-  } else {
-    w[0] = 1.0f - t;
-    w[1] = t;
-    w[2] = 0.0f;
-    w[3] = 0.0f;
-  }
-  // every tap of an f outside this range lies outside the interior
-  f = fminf(fmaxf(f, (float)(origin - 3)), (float)(origin + extent + 1));
-  const int i0 = (int)f;
-  const int ntaps = bicubic ? 4 : 2;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int i = bicubic ? i0 - 1 + k : i0 + k;
-    if (clamp && bicubic) i = min(max(i, pad), pad + n - 1);
-    ok[k] = k < ntaps && i >= origin && i < origin + extent && i >= 0;
-    idx[k] = i;
-    if (!ok[k]) w[k] = 0.0f;
-  }
-}
-
-__global__ void fused_window_folded_kernel(
-    const float* __restrict__ padded, const int* __restrict__ sy,
-    const int* __restrict__ sx, const float* __restrict__ xt,
-    const float* __restrict__ yt, float* __restrict__ out, int64_t n_samples,
-    int L, int C, int Hp, int Wp, int P, int bh, int wx, int my, int mx,
-    int pad_y, int pad_x, int n_y, int n_x, bool bicubic, bool clamp,
-    Offsets offs) {
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_samples) return;
-  const int64_t tl = s / P;  // (t * L + l)
-  const int p = (int)(s - tl * P);
-  const int t = (int)(tl / L);
-  const int l = (int)(tl - (int64_t)t * L);
+// K3: O offset fields from one window per tile, bilinear. Grid as
+// window_sample_kernel's (lead-major).
+template <int NTHR, int CP>
+__global__ void __launch_bounds__(NTHR, Shape<NTHR>::kPerSm)
+window_offsets_kernel(const float* __restrict__ padded, const int* __restrict__ sy,
+                      const int* __restrict__ sx, const float* __restrict__ xt,
+                      const float* __restrict__ yt, float* __restrict__ out,
+                      int T, int L, int C, int Hp, int Wp, int P, int nchunk,
+                      int spt, int bh, int wx, int my, int mx, int pad_y, int pad_x,
+                      int n_y, int n_x, bool clamp, const Offsets offs,
+                      int stage_px) {
+  extern __shared__ __align__(16) float smem[];
+  const int chunk = (int)(blockIdx.x % nchunk);
+  const int t = (int)(blockIdx.x / nchunk % T);
+  const int l = (int)(blockIdx.x / nchunk / T);
+  const int64_t tl = (int64_t)t * L + l;
+  const int c0 = blockIdx.y * CP;
+  const int cg = min(CP, C - c0);
   const int O = offs.n;
-  const float x = xt[s];
-  const float y = yt[s];
-  float* o_base = out + tl * O * C * P + p;
-  if (!isfinite(x) || !isfinite(y)) {
-    for (int k = 0; k < O * C; ++k) o_base[(int64_t)k * P] = 0.0f;
+  const int iy0 = sy[t] + my, ey = bh - 2 * my;  // the interior
+  const int ix0 = sx[t] + mx, ex = wx - 2 * mx;
+  const int p0 = chunk * NTHR * spt + threadIdx.x;
+  const float* xrow = xt + tl * P;
+  const float* yrow = yt + tl * P;
+
+  // 1. the box: the base taps' range, widened by the offsets' reach
+  int ylo = INT_MAX, yhi = INT_MIN, xlo = INT_MAX, xhi = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < kMaxSpt; ++k) {
+    const int p = p0 + k * NTHR;
+    if (k >= spt || p >= P) continue;
+    const float x = xrow[p], y = yrow[p];
+    if (!isfinite(x) || !isfinite(y)) continue;
+    float t;
+    int a0, a1, b0, b1;
+    tap_span<false>(axis_base<false>(y, iy0, ey, pad_y, n_y, clamp, t), iy0, ey,
+                    pad_y, n_y, clamp, a0, a1);
+    tap_span<false>(axis_base<false>(x, ix0, ex, pad_x, n_x, clamp, t), ix0, ex,
+                    pad_x, n_x, clamp, b0, b1);
+    if (a0 > a1 || b0 > b1) continue;
+    a0 = max(a0 + offs.oy_min, 0);
+    a1 = min(a1 + offs.oy_max, Hp - 1);
+    b0 = max(b0 + offs.ox_min, 0);
+    b1 = min(b1 + offs.ox_max, Wp - 1);
+    if (a0 > a1 || b0 > b1) continue;
+    ylo = min(ylo, a0);
+    yhi = max(yhi, a1);
+    xlo = min(xlo, b0);
+    xhi = max(xhi, b1);
+  }
+  const Box box = block_box(ylo, yhi, xlo, xhi);
+
+  float* o_base = out + tl * O * C * P + (int64_t)c0 * P;  // + (o C + c) P + p
+  if (box.y0 > box.y1) {  // no tap of the block counts: all zeros
+    for (int k = 0; k < spt; ++k) {
+      const int p = p0 + k * NTHR;
+      if (p >= P) break;
+      for (int o = 0; o < O; ++o) {
+        for (int c = 0; c < cg; ++c) o_base[(int64_t)(o * C + c) * P + p] = 0.0f;
+      }
+    }
     return;
   }
-  int iy[4], ix[4];
-  float wy[4], wxv[4];
-  bool oky[4], okx[4];
-  axis_taps(y, sy[t] + my, bh - 2 * my, pad_y, n_y, bicubic, clamp, iy, wy,
-            oky);
-  axis_taps(x, sx[t] + mx, wx - 2 * mx, pad_x, n_x, bicubic, clamp, ix, wxv,
-            okx);
   const int64_t plane = (int64_t)Hp * Wp;
-  const float* src = padded + (int64_t)l * C * plane;
-  for (int o = 0; o < O; ++o) {
-    const int dy = offs.oy[o];
-    const int dx = offs.ox[o];
-    for (int c = 0; c < C; ++c) {
-      const float* img = src + (int64_t)c * plane;
-      float acc = 0.0f;
+  const float* src = padded + ((int64_t)l * C + c0) * plane;
+  const int bw = box.x1 - box.x0 + 1;
+  const int band = min(box.y1 - box.y0 + 1, stage_px / bw);
+
+  for (int by = box.y0; by <= box.y1; by += band) {
+    const int rows = min(band, box.y1 - by + 1);
+    if (by != box.y0) __syncthreads();  // the last band's reads are done
+    stage_box<CP>(smem, src, plane, Wp, cg, by, rows, box.x0, bw);
+    const bool first = by == box.y0;
+    // one sample at a time (its O x C outputs are the registers' work);
+    // its coordinates come again from L1
+#pragma unroll 1
+    for (int k = 0; k < spt; ++k) {
+      const int p = p0 + k * NTHR;
+      if (p >= P) break;
+      const float x = xrow[p], y = yrow[p];
+      const bool finite = isfinite(x) && isfinite(y);
+      int iy[4], ix[4];
+      float wy[4], wxv[4];
+      bool oky[4], okx[4];
+      axis_taps<false>(finite ? y : 0.0f, iy0, ey, pad_y, n_y, clamp, iy, wy, oky);
+      axis_taps<false>(finite ? x : 0.0f, ix0, ex, pad_x, n_x, clamp, ix, wxv, okx);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int yy = iy[a] + dy;
-        if (!oky[a] || yy < 0 || yy >= Hp) continue;
-        const float* row = img + (int64_t)yy * Wp;
-        float r = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int xx = ix[b] + dx;
-          if (!okx[b] || xx < 0 || xx >= Wp) continue;
-          r += wxv[b] * __ldg(row + xx);
-        }
-        acc += wy[a] * r;
+      for (int a = 0; a < 2; ++a) {
+        oky[a] = oky[a] && finite;
+        okx[a] = okx[a] && finite;
+        wy[a] = oky[a] ? wy[a] : 0.0f;
+        wxv[a] = okx[a] ? wxv[a] : 0.0f;
       }
-      o_base[(int64_t)(o * C + c) * P] = acc;
+      float* dst = o_base + p;
+#pragma unroll
+      for (int o = 0; o < kMaxOffsets; ++o) {
+        if (o >= O) break;
+        int r[4], cc[4];
+        float wr[4], wc[4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          r[a] = iy[a] + offs.oy[o];
+          wr[a] = wy[a];
+          cc[a] = ix[a] + offs.ox[o];
+          wc[a] = wxv[a];
+        }
+        rebase_taps<2>(r, wr, oky, by, rows);
+        rebase_taps<2>(cc, wc, okx, box.x0, bw);
+        float acc[CP];
+#pragma unroll
+        for (int c = 0; c < CP; ++c) acc[c] = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          float rs[CP];
+#pragma unroll
+          for (int c = 0; c < CP; ++c) rs[c] = 0.0f;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            float v[CP];
+            load_px<CP>(smem + (r[a] * bw + cc[b]) * CP, v);
+#pragma unroll
+            for (int c = 0; c < CP; ++c) rs[c] += wc[b] * v[c];
+          }
+#pragma unroll
+          for (int c = 0; c < CP; ++c) acc[c] += wr[a] * rs[c];
+        }
+#pragma unroll
+        for (int c = 0; c < CP; ++c) {
+          if (c < cg) put(dst + (int64_t)(o * C + c) * P, acc[c], first);
+        }
+      }
     }
   }
 }
@@ -165,9 +209,12 @@ __global__ void fused_window_folded_kernel(
 // Plain C entry point (loaded with ctypes). Arrays are contiguous device
 // memory: padded (L, C, Hp, Wp) f32; sy, sx (T,) int32; xt, yt (T, L, P)
 // f32; out (T, L, O, C, P) f32. off_yx is a HOST array of n_offsets
-// (oy, ox) pairs. wx is the window width, my/mx the interior margins.
-// Launches on `stream` and returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for an offset count outside 1..kMaxOffsets.
+// (oy, ox) pairs. wx is the window width, my/mx the interior margins. One
+// zero offset with zero margins is K2 (bicubic or bilinear); anything else
+// is K3 (bilinear only). Launches on `stream` and returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for an offset count outside
+// 1..kMaxOffsets, bicubic offsets, or a window row of C channels beyond a
+// block's shared memory.
 extern "C" int s360_fused_window_folded(
     const float* padded, const int* sy, const int* sx, const float* xt,
     const float* yt, float* out, int T, int L, int C, int Hp, int Wp, int P,
@@ -176,19 +223,53 @@ extern "C" int s360_fused_window_folded(
   if (n_offsets < 1 || n_offsets > kMaxOffsets) {
     return (int)cudaErrorInvalidValue;
   }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_offsets == 1 && off_yx[0] == 0 && off_yx[1] == 0 && my == 0 && mx == 0) {
+    return launch_window_sample<true>(padded, sy, sx, xt, yt, out, T, L, C, Hp,
+                                      Wp, P, bh, wx, pad_y, pad_x, n_y, n_x,
+                                      bicubic != 0, clamp != 0, st);
+  }
+  if (bicubic) return (int)cudaErrorInvalidValue;
   Offsets offs;
   offs.n = n_offsets;
+  offs.oy_min = offs.ox_min = INT_MAX;
+  offs.oy_max = offs.ox_max = INT_MIN;
   for (int o = 0; o < kMaxOffsets; ++o) {
-    offs.oy[o] = o < n_offsets ? off_yx[2 * o] : 0;
-    offs.ox[o] = o < n_offsets ? off_yx[2 * o + 1] : 0;
+    const int oy = o < n_offsets ? off_yx[2 * o] : 0;
+    const int ox = o < n_offsets ? off_yx[2 * o + 1] : 0;
+    offs.oy[o] = oy;
+    offs.ox[o] = ox;
+    if (o >= n_offsets) continue;
+    offs.oy_min = min(offs.oy_min, oy);
+    offs.oy_max = max(offs.oy_max, oy);
+    offs.ox_min = min(offs.ox_min, ox);
+    offs.ox_max = max(offs.ox_max, ox);
   }
-  const int64_t n_samples = (int64_t)T * L * P;
-  if (n_samples == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n_samples + threads - 1) / threads;
-  fused_window_folded_kernel<<<(unsigned int)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      padded, sy, sx, xt, yt, out, n_samples, L, C, Hp, Wp, P, bh, wx, my,
-      mx, pad_y, pad_x, n_y, n_x, bicubic != 0, clamp != 0, offs);
-  return (int)cudaGetLastError();
+  if ((int64_t)T * L * P == 0 || C == 0) return (int)cudaSuccess;
+  const int CP = C >= 3 ? 4 : C;
+  auto shaped = [&](auto nthr) {
+    constexpr int NTHR = decltype(nthr)::value;
+    int stage_px = 0;
+    const int smem =
+        pick_smem(bh, wx, CP, 0, Shape<NTHR>::kBudget, &stage_px);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int64_t tl = (int64_t)T * L;
+    const int spt = pick_spt(tl, P, NTHR, Shape<NTHR>::kPerSm);
+    const int nchunk = (P + NTHR * spt - 1) / (NTHR * spt);
+    const dim3 grid((unsigned int)(tl * nchunk), (unsigned int)((C + CP - 1) / CP));
+    auto go = [&](auto kernel) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, NTHR, smem, st>>>(
+          padded, sy, sx, xt, yt, out, T, L, C, Hp, Wp, P, nchunk, spt, bh, wx,
+          my, mx, pad_y, pad_x, n_y, n_x, clamp != 0, offs, stage_px);
+      return (int)cudaGetLastError();
+    };
+    if (CP == 4) return go(window_offsets_kernel<NTHR, 4>);
+    if (CP == 2) return go(window_offsets_kernel<NTHR, 2>);
+    return go(window_offsets_kernel<NTHR, 1>);
+  };
+  if (P > kBigTile) return shaped(std::integral_constant<int, 256>());
+  return shaped(std::integral_constant<int, 128>());
 }

@@ -26,8 +26,9 @@ fallback from one to the other.
 ``LAUNCHES`` counts kernel launches by (kernel, site), where kernel is one
 of :data:`KERNELS` and site is the caller's label, so a run can show which
 call sites went through which kernel. ``RECORD``, when set to a dict,
-keeps the inputs and output of the launch with the most samples per
-(kernel, site, offsets) for later comparison with the twin.
+keeps per (kernel, site, offsets) the inputs and output of the launch with
+the most samples and the number of launches, for later comparison with the
+twin.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ __all__ = [
     "fused_window_sample_folded",
     "fused_window_sample_folded_reference",
     "window_gather",
+    "axis_taps",
     "reset_launch_counts",
     "LAUNCHES",
 ]
@@ -92,35 +94,58 @@ def _find_nvcc() -> str:
     )
 
 
-def _build(source: str) -> str:
-    """nvcc ``csrc/<source>`` into ``_build/``, keyed by the source hash;
-    returns the shared library's path (built once per hash)."""
-    path = os.path.join(_CSRC_DIR, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+def _so_path(source: str) -> str:
+    """``_build/lib<stem>_<hash>.so``, keyed by the source and the shared
+    headers (``csrc/*.cuh``) it may include."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
-    so_path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
+    return os.path.join(_BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def _build(source: str) -> str:
+    """nvcc ``csrc/<source>`` into ``_build/`` (once per hash); returns the
+    shared library's path. ptxas's report (registers, shared memory,
+    spills per kernel) is kept beside it, see :func:`ptxas_report`."""
+    so_path = _so_path(source)
     if os.path.exists(so_path):
         return so_path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
     cmd = [
         _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, path,
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", tmp, os.path.join(_CSRC_DIR, source),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc {source} failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
         )
+    with open(f"{so_path}.ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, so_path)
     return so_path
 
 
+def ptxas_report(source: str) -> list[str]:
+    """ptxas's per-kernel lines (registers, shared memory, spill stores)
+    from the build of ``source``; empty before it is built."""
+    try:
+        with open(f"{_so_path(source)}.ptxas.txt") as f:
+            lines = f.read().splitlines()
+    except FileNotFoundError:
+        return []
+    keep = ("Compiling entry", "registers", "spill")
+    return [ln.split("ptxas info    : ")[-1] for ln in lines if any(k in ln for k in keep)]
+
+
 def build_all() -> dict[str, float]:
     """Build every kernel source, one nvcc process each, all started
-    together; returns source -> seconds (near 0 for a cached build)."""
+    together; returns source -> nvcc seconds (near 0 for a cached build)."""
     import concurrent.futures
 
     def timed(source):
@@ -173,7 +198,7 @@ def _check_inputs(padded, sy, sx, xt, yt, interpolation, border, origin_shape):
         raise ValueError(f"inputs on different devices: {devs}")
 
 
-def _axis_taps(v, origin, extent, pad, n, bicubic, clamp):
+def axis_taps(v, origin, extent, pad, n, bicubic, clamp):
     """Torch twin of the kernels' ``axis_taps``: list of (index, weight)
     with masked taps at index 0 / weight 0."""
     if clamp and not bicubic:
@@ -231,8 +256,8 @@ def window_gather(
     finite = torch.isfinite(x) & torch.isfinite(y)
     x = torch.where(finite, x, 0.0)
     y = torch.where(finite, y, 0.0)
-    ty = _axis_taps(y, oy + margin_y, bh - 2 * margin_y, pad_y, n_y, bicubic, clamp)
-    tx = _axis_taps(x, ox + margin_x, wx - 2 * margin_x, pad_x, n_x, bicubic, clamp)
+    ty = axis_taps(y, oy + margin_y, bh - 2 * margin_y, pad_y, n_y, bicubic, clamp)
+    tx = axis_taps(x, ox + margin_x, wx - 2 * margin_x, pad_x, n_x, bicubic, clamp)
     flat = src.reshape(L, C, Hp * Wp)
     fields = []
     for dy, dx in offsets or ((0, 0),):
@@ -278,12 +303,16 @@ def fused_window_sample_reference(
 
 
 def _record(kernel, site, args, kw, out):
-    """Keep the launch with the most samples per (kernel, site, offsets)."""
+    """Keep the launch with the most samples per (kernel, site, offsets),
+    as (args, kw, out, launches of that key)."""
     if RECORD is None:
         return
     key = (kernel, site, kw.get("offsets"))
+    n = RECORD[key][3] + 1 if key in RECORD else 1
     if key not in RECORD or args[3].numel() > RECORD[key][0][3].numel():
-        RECORD[key] = (args, kw, out)
+        RECORD[key] = (args, kw, out, n)
+    else:
+        RECORD[key] = RECORD[key][:3] + (n,)
 
 
 def fused_window_sample(

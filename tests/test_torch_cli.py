@@ -164,7 +164,7 @@ def test_render_video_matches_jax_and_resumes(footage):
     imgs = str(root / "imgs")
     chained = str(root / "chained")
     st_chained = TRV.render_video(rig_path, imgs, chained, 0, 2, RenderConfig(**KW),
-                                  save_state_dir=str(root / "state"))
+                                  save_state_dir=str(root / "state"), device="cpu")
     states = sorted(os.listdir(root / "state"))
     assert states == ["state_000001.pkl", "state_000002.pkl"]  # frame 0 GC'd
     for frame in range(3):
@@ -174,14 +174,14 @@ def test_render_video_matches_jax_and_resumes(footage):
 
     split = str(root / "split")
     TRV.render_video(rig_path, imgs, split, 0, 1, RenderConfig(**KW),
-                     save_state_dir=str(root / "split_state"))
+                     save_state_dir=str(root / "split_state"), device="cpu")
     st_split = TRV.render_video(
         rig_path, imgs, split, 2, 2, RenderConfig(**KW),
-        resume_state=str(root / "split_state" / "state_000001.pkl"))
+        resume_state=str(root / "split_state" / "state_000001.pkl"), device="cpu")
     np.testing.assert_array_equal(_eqr(split, 2), _eqr(chained, 2))
     # frame 2 without its temporal prior computes other flows
     st_fresh = TRV.render_video(rig_path, imgs, str(root / "fresh"), 2, 2,
-                                RenderConfig(**KW))
+                                RenderConfig(**KW), device="cpu")
     # (the pole states' prev_side holds NaN rows at this scale, as in the
     # JAX package's pickles; nothing reads them)
     same = lambda a, b: np.array_equal(a.numpy(), b.numpy(), equal_nan=True)
@@ -193,7 +193,8 @@ def test_render_video_matches_jax_and_resumes(footage):
 
     from_jax = str(root / "from_jax")
     TRV.render_video(rig_path, imgs, from_jax, 2, 2, RenderConfig(**KW),
-                     resume_state=str(root / "jax_state" / "state_000001.pkl"))
+                     resume_state=str(root / "jax_state" / "state_000001.pkl"),
+                     device="cpu")
     assert psnr(_eqr(from_jax, 2)[:3], _eqr(str(root / "jax"), 2)[:3]) >= PSNR_MIN
 
 
@@ -204,7 +205,7 @@ def test_render_video_stage_times(tmp_path, footage):
     timer = TC.StageTimer()
     TRV.render_video(rig_path, str(root / "imgs"), str(tmp_path / "out"), 0, 1,
                      RenderConfig(**KW), save_state_dir=str(tmp_path / "state"),
-                     timer=timer)
+                     timer=timer, device="cpu")
     totals = timer.totals()
     per_frame = ("decode", "wait_inputs", "render", "fetch", "encode", "save_state")
     assert {name: totals[name][0] for name in per_frame} == dict.fromkeys(per_frame, 2)
@@ -225,7 +226,23 @@ def test_unported_flags_raise_before_output(tmp_path, footage, flag):
     root, rig_path = footage
     out = tmp_path / "out"
     argv = ["--rig_json_file", rig_path, "--imgs_dir", str(root / "imgs"),
-            "--output_dir", str(out), "--quality", "preview"] + flag
+            "--output_dir", str(out), "--quality", "preview", "--device", "cpu"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         TRV.main(argv)
+    assert not out.exists()
+
+
+def test_default_device_raises_without_cuda(tmp_path, footage, monkeypatch):
+    """The CLI renders on CUDA by default: without it, it raises before
+    any output instead of carrying on on the CPU."""
+    monkeypatch.setattr(TRV.torch.cuda, "is_available", lambda: False)
+    root, rig_path = footage
+    out = tmp_path / "out"
+    argv = ["--rig_json_file", rig_path, "--imgs_dir", str(root / "imgs"),
+            "--output_dir", str(out), "--quality", "preview"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRV.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRV.render_video(rig_path, str(root / "imgs"), str(out), 0, 0,
+                         RenderConfig(**KW))
     assert not out.exists()
