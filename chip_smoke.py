@@ -1,10 +1,12 @@
 """Smoke run of surround360_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, 6 to 7 minutes
+    python3 chip_smoke.py --quick    # phases 1-3 and the product path's
+                                     # kernel sites on random inputs, ~40 s
 
 Phases (each prints its lines; any failure exits non-zero before the
 kernels line; a phase-3 failure is printed at once and fails the run
-after phase 9, so that the measurements still print):
+after phase 13, so that the measurements still print):
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off (the reference is float32).
@@ -19,7 +21,10 @@ after phase 9, so that the measurements still print):
    is no multiple of 32. Then the staged kernels' own paths: tap boxes
    far above a block's shared memory (the row-band walk), a (tile, lead)
    whose coordinates are all non-finite (an empty box), windows reaching
-   past the array (boxes clipped at its edges) and 16 offsets.
+   past the array (boxes clipped at its edges), 16 offsets, and C = 3
+   sources under windows as wide as a padded 6k and 8k panorama row (one
+   row fills most of a block's shared memory); a window row that no
+   block can hold must raise from the wrapper.
 4. main path: the 6k quality preset (6300x3072 per eye from 2048 px
    cameras, 6144x6144 final), pixflow_tpu flows, both poles merged,
    sharpening and the final resize; frame 0, then frame 1 chained through
@@ -52,6 +57,30 @@ after phase 9, so that the measurements still print):
    flow's 16-column tiles: tight-x, 13 folded candidates), a forced call
    that no launch count includes.
 9. quality of a pixflow_tpu_offsets frame, as phase 6.
+10. unpack: raw footage made on the host from the simulator's views (a
+   pole painted into both bottom cameras; each view sent backwards
+   through a non-trivial ISP config, mosaiced, packed to 12 bits; 17
+   cameras x 2 frames in one .bin, per-serial ISP JSONs), then the
+   unpack CLI (unpack.main) on the card, writing 16-bit PNGs. Requires
+   17 x 2 frames, every frame's interior near the simulator's view, the
+   ISP on the card near the ISP on the CPU for one camera, and the native
+   converters equal to the numpy ones; prints ISP ms per frame and
+   camera, unpack seconds per frame and its host stages.
+11. product cli: render_video.main on phase 10's PNGs at the 6k preset
+   with pole removal (red masks over the painted pole), a 1536 px
+   cubemap and pixflow_tpu_offsets on the ring, the poles and the pole
+   removal; two chained frames, then frame 1 resumed from frame 0's
+   pickle: equirect and cubemap equal to the chained frame (max-abs 0).
+   Requires the cubemap's shape, K1 launches at the cubemap's two
+   remaps and the pole-removal warp, K3 launches at the pole-removal
+   flow, and (pole removal rerun on the same PNGs) alpha refilled under
+   the primary mask and the mask's interior near the unpainted view.
+12. new sites: the recorded calls of phase 11's new kernel sites, as
+   phases 5 and 8.
+13. debug and profile: one frame at the preview preset with
+   --save_debug_images --profile_stages (the debug tree's files, the
+   stage table), then run_all.main --steps unpack,render at the preview
+   preset on a small footage (256 px cameras): runtimes.txt and frames.
 
 Then the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,6 +96,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -80,6 +110,15 @@ PSNR_MIN = 40.0  # the reference package's preset-quality target
 PRESET = "6k"
 K1_SITES = ("side_projection", "novel_view", "fisheye_strip", "pole_warp")
 FLOW_SITES = ("side_flow", "pole_flow")
+# the product path with pole removal and a cubemap adds these
+K1_PRODUCT_SITES = ("cubemap_eq", "cubemap_po", "pole_removal_warp")
+POLE_REMOVAL_FLOW = "pole_removal_flow"
+CUBE = 1536  # cubemap face, px
+FLOW_ALG = "pixflow_tpu_offsets"
+ISP_MEAN_ERR = 0.01  # unpacked frame vs the simulator's view, interior mean
+ISP_STEP_MAX = 0.05  # ISP on the card vs the CPU: a tone-LUT entry near black, sharpened
+ISP_FLIPS_MAX = 0.005  # share of values whose LUT index may flip
+POLE_PSNR_MIN = 40.0  # mask interior vs the unpainted view, dB
 PALLAS = "surround360_tpu/ops/pallas_remap.py"
 REPLACES = {
     "fused_window_sample": f"{PALLAS}:640",
@@ -391,6 +430,21 @@ def _edge_cases(rng):
         yield "fused_window_folded", f"edge/clipped/{interp}/{border}", (
             big, sy, sx,
             *_edge_coords(rng, sy[:, None], sx[:, None], 48, 64, (T, L, 517))), kw
+    # C = 3 (staged as 4 floats a pixel) under windows as wide as a padded
+    # 6k / 8k panorama row, the cubemap's polar faces: one row is 101 /
+    # 135 KB, above a block's share of shared memory in either block shape
+    # (P = 2048: 256 threads; P = 512: 128 threads), so a band is one row.
+    # Tile 0 sweeps every column, tile 1 is compact
+    for wide_w, P_ in ((6320, 2048), (8424, 512)):
+        wide = rng.random((1, 3, 40, wide_w), dtype=np.float32)
+        kw = dict(pad_y=3, pad_x=8, n_y=34, n_x=wide_w - 16, bh=32, bw=wide_w,
+                  interpolation="bicubic", border="constant", base_bw=None)
+        sy = np.array([[0], [8], [0], [4]], np.int32)
+        sx = np.zeros((4, 1), np.int32)
+        xt, yt = _edge_coords(rng, sy, sx, 32, wide_w, (4, 1, P_))
+        xt[1] = 3000.0 + rng.uniform(0, 100, (1, P_)).astype(np.float32)
+        yield "fused_window_sample", f"edge/wide/C=3/Wp={wide_w}/P={P_}", (
+            wide, sy, sx, xt, yt), kw
     src2 = rng.random((L, 2, Hp, Wp), dtype=np.float32)
     dirs = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
     nine = ((0, 0),) + tuple((py * 8, px * 8) for py, px in dirs)
@@ -421,6 +475,39 @@ def _twin_call(kernel):
     return fw.fused_window_sample_folded, fw.fused_window_sample_folded_reference
 
 
+def _refused_launch():
+    """A window row that no block's shared memory holds: the wrapper must
+    raise (cudaErrorInvalidValue, no launch counted) and leave the device
+    usable. Returns the failure, or None."""
+    import torch
+
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    W = 15000
+    src = torch.rand((1, 3, 8, W), device="cuda")
+    origin = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    xt = torch.rand((1, 1, 64), device="cuda") * (W - 1)
+    yt = torch.rand((1, 1, 64), device="cuda") * 7
+    kw = dict(bh=8, pad_y=0, pad_x=0, n_y=8, n_x=W, interpolation="bicubic",
+              border="constant")
+    before = fw.launch_count()
+    try:
+        fw.fused_window_sample(src, origin, origin, xt, yt, bw=W, **kw)
+    except RuntimeError as e:
+        if "CUDA error 1" not in str(e):
+            return f"a refused launch raised another error: {e}"
+    else:
+        return "a 15000 px window row did not raise"
+    if fw.launch_count() != before:
+        return "a refused launch was counted"
+    got = fw.fused_window_sample(src, origin, origin, xt, yt, bw=W, base_bw=6000,
+                                 **kw)
+    want = fw.fused_window_sample_reference(src, origin, origin, xt, yt, bw=W,
+                                            base_bw=6000, **kw)
+    err = float((got - want).abs().max())
+    return None if err <= TOL else f"the launch after a refused one: max-abs {err}"
+
+
 def phase_small():
     """Every small case, kernel vs twin. Returns (worst max-abs per kernel,
     the failed cases); a failure is printed here and fails the run at its
@@ -443,6 +530,13 @@ def phase_small():
             log(f"[3 small] FAILED {failed[-1]}")
         n, n_bad, w = worst.get(kernel, (0, 0, 0.0))
         worst[kernel] = (n + 1, n_bad + bad, max(w, err))
+    refused = _refused_launch()
+    if refused:
+        failed.append(refused)
+        log(f"[3 small] FAILED {refused}")
+    else:
+        log("[3 small] a 15000 px window row (240 KB at C = 3) is refused: the "
+            "wrapper raised, nothing was counted, and the next launch ran")
     for kernel, (n, n_bad, err) in worst.items():
         log(f"[3 small] {kernel} vs twin, {n} cases: max-abs {err:.3g} "
             + (f"({n_bad} FAILED)" if n_bad else f"(<= {TOL})"))
@@ -762,6 +856,379 @@ def phase_flow_sites(record, device):
     return k3, k2
 
 
+# A non-trivial ISP config for the unpack phase: black level, white
+# balance, vignette roll-off, a CCM with saturation, gamma, sharpening.
+ISP_KW = dict(
+    bits_per_pixel=12, bayer_pattern="GBRG", black_level=(64.0, 64.0, 64.0),
+    white_balance_gain=(1.25, 1.0, 1.4),
+    vignette_rolloff_h=((1.2, 1.2, 1.2), (0.9, 0.9, 0.9), (1.2, 1.2, 1.2)),
+    vignette_rolloff_v=((1.15, 1.15, 1.15), (0.92, 0.92, 0.92), (1.15, 1.15, 1.15)),
+    ccm=((1.15, -0.1, -0.05), (-0.08, 1.2, -0.12), (-0.02, -0.13, 1.15)),
+    saturation=1.1, gamma=(0.4545, 0.4545, 0.4545), sharpening=(0.25, 0.25, 0.25),
+)
+
+
+def _sensor_raw12(view, cfg):
+    """What a sensor behind ``cfg``'s ISP would have recorded of ``view``
+    (4, H, W): the ISP's stages backwards (tone curve as its gamma alone,
+    composite CCM, white balance, vignette, black level), mosaiced, as
+    12-bit values (H, W) uint16. The ISP then returns the view, up to its
+    demosaic, quantization and sharpening."""
+    from surround360_tpu_torch.isp import pipeline as isp
+
+    H, W = view.shape[-2:]
+    lin = np.stack([np.power(view[c], 1.0 / cfg.gamma[c]) for c in range(3)])
+    m = isp.build_composite_ccm(cfg).astype(np.float64) / (isp.TONE_CURVE_LUT_SIZE - 1)
+    sensor = np.tensordot(np.linalg.inv(m), lin, axes=[[1], [0]])
+    vh, vv = isp.build_vignette_gains(cfg, H, W)
+    red, green, _, _ = isp.bayer_masks(cfg, H, W)
+    planes = []
+    for c in range(3):
+        gain = cfg.white_balance_gain[c] * vv[:, c, None] * vh[None, :, c]
+        bl = cfg.black_level[c] / cfg.max_pixel_value
+        planes.append(np.clip(sensor[c] / gain, 0.0, 1.0) * (1.0 - bl) + bl)
+    mosaic = np.where(red, planes[0], np.where(green, planes[1], planes[2]))
+    return np.clip(mosaic * 4095.0 + 0.5, 0, 4095).astype(np.uint16)
+
+
+def _pole_boxes(H, W):
+    """The painted pole of each bottom camera and the primary mask's
+    interior, as tests/test_pole_removal.py places them at 256 px:
+    (primary, secondary, interior) as (y0, y1, x0, x1)."""
+    k, cy, cx = H / 256.0, H // 2, W // 2
+    box = lambda a, b, c, d: (cy + int(a * k), cy + int(b * k), cx + int(c * k),
+                              cx + int(d * k))
+    return box(-24, 24, -20, 20), box(-70, -30, 30, 70), box(-12, 12, -8, 8)
+
+
+def _write_capture(root, rig, views, frames=2):
+    """Raw footage of ``views`` under ``root``: bins/0.bin (every camera,
+    ``frames`` times the same frame), isp/<serial>.json, rig.json, and
+    masks/<camera id>.png (red over the pole painted into both bottom
+    cameras). Returns the painted views (the cameras' order) and the ISP
+    config."""
+    from surround360_tpu_torch import native
+    from surround360_tpu_torch.cli.common import write_image
+    from surround360_tpu_torch.geometry.rig import save_rig
+    from surround360_tpu_torch.isp import pack_12bit_frame, write_footage_file
+    from surround360_tpu_torch.isp.pipeline import IspConfig
+
+    cfg = IspConfig(**ISP_KW)
+    for d in ("bins", "isp", "masks"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    save_rig(os.path.join(root, "rig.json"), rig)
+    H, W = views[0].shape[-2:]
+    painted = list(views)
+    bottoms = (rig.bottom_camera_index, rig.bottom_camera2_index)
+    for cam, (y0, y1, x0, x1) in zip(bottoms, _pole_boxes(H, W)[:2]):
+        painted[cam] = views[cam].copy()
+        painted[cam][:3, y0:y1, x0:x1] = 0.05
+        mask = np.zeros((4, H, W), np.float32)
+        mask[0, y0:y1, x0:x1] = 1.0
+        mask[3] = 1.0
+        write_image(os.path.join(root, "masks", f"{rig.ids[cam]}.png"), mask)
+    serials = [10000 + i for i in range(len(rig.ids))]
+    for serial in serials:
+        with open(os.path.join(root, "isp", f"{serial}.json"), "w") as f:
+            json.dump(cfg.to_json(), f)
+    pack = native.pack12_native if native.available() else pack_12bit_frame
+    with ThreadPoolExecutor(8) as pool:
+        payloads = list(pool.map(lambda v: pack(_sensor_raw12(v, cfg)), painted))
+    write_footage_file(os.path.join(root, "bins", "0.bin"), [payloads] * frames,
+                       W, H, 12, serials)
+    return painted, cfg
+
+
+def phase_unpack(rig, views, device_name="cuda"):
+    """Raw footage -> the unpack CLI on the card -> 16-bit PNG trees.
+    Returns the capture's root (rig.json, masks/, raw/)."""
+    import torch
+
+    from surround360_tpu_torch import native
+    from surround360_tpu_torch.cli import unpack
+    from surround360_tpu_torch.cli.common import StageTimer, read_image_rgba
+    from surround360_tpu_torch.isp import BinaryFootageReader, pack_12bit_frame
+    from surround360_tpu_torch.isp import raw as rawmod
+    from surround360_tpu_torch.isp.pipeline import isp_process
+
+    root = os.path.join(WORK, "capture")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    painted, cfg = _write_capture(root, rig, views, FRAMES)
+    H, W = painted[0].shape[-2:]
+    log(f"[10 unpack] raw footage: {len(rig.ids)} cameras x {FRAMES} frames of "
+        f"{W}x{H} 12-bit {cfg.bayer_pattern} in one .bin, made in "
+        f"{time.perf_counter() - t0:.1f} s (native library: {native.available()})")
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    cams = unpack.main(
+        ["--binary_prefix", os.path.join(root, "bins"), "--dest_path",
+         os.path.join(root, "raw"), "--isp_dir", os.path.join(root, "isp"),
+         "--output_bpp", "16", "--device", device_name], timer=timer)
+    wall = time.perf_counter() - t0
+    if cams != list(rig.ids):
+        raise AssertionError(f"unpacked {cams}, want {rig.ids}")
+
+    def interior_err(i):
+        errs = []
+        for f in range(FRAMES):
+            img = read_image_rgba(os.path.join(root, "raw", cams[i], f"{f:06d}.png"))
+            if img.shape != (4, H, W) or not np.isfinite(img).all():
+                raise AssertionError(f"bad unpacked frame {cams[i]}/{f}: {img.shape}")
+            m = max(8, H // 32)
+            errs.append(float(np.abs(img[:3, m:-m, m:-m] - painted[i][:3, m:-m, m:-m]).mean()))
+        return max(errs)
+
+    with ThreadPoolExecutor(8) as pool:
+        errs = list(pool.map(interior_err, range(len(cams))))
+    if max(errs) > ISP_MEAN_ERR:
+        raise AssertionError(f"unpacked frames off the simulator's views: {errs}")
+
+    # the ISP on the device against the ISP on the CPU, one camera; the
+    # native converters against the numpy ones, one frame
+    reader = BinaryFootageReader(os.path.join(root, "bins", "0.bin"))
+    buf = bytes(reader.get_frame_bytes(0, 1))
+    raw16 = rawmod.convert_12bit_numpy(buf, W, H)
+    if native.available():
+        if not np.array_equal(native.convert12_native(buf, W, H), raw16):
+            raise AssertionError("native 12-bit conversion differs from numpy")
+        vals = raw16 >> 4
+        if native.pack12_native(vals) != pack_12bit_frame(vals):
+            raise AssertionError("native 12-bit packing differs from numpy")
+        buf8 = buf[: W * H]
+        if not np.array_equal(native.convert8_native(buf8, W, H),
+                              rawmod.convert_8bit_numpy(buf8, W, H)):
+            raise AssertionError("native 8-bit conversion differs from numpy")
+    elif device_name == "cuda":
+        raise AssertionError("the native footage library did not build")
+    rawf = torch.from_numpy(raw16.astype(np.float32) / 65535.0)
+    device = torch.device(device_name)
+    on_dev = isp_process(rawf.to(device), cfg).cpu()
+    on_cpu = isp_process(rawf, cfg)
+    diff = (on_dev - on_cpu).abs()
+    err, share = float(diff.max()), float((diff > 1e-4).float().mean())
+    if err > ISP_STEP_MAX or share > ISP_FLIPS_MAX:
+        raise AssertionError(f"ISP on {device_name} vs CPU: max-abs {err}, share {share}")
+    batch = rawf.to(device)[None].expand(FRAMES, H, W).contiguous()
+    isp_ms = (cuda_ms(lambda: isp_process(batch, cfg)) / FRAMES
+              if device.type == "cuda" else float("nan"))
+    stages = timer.totals()
+    log(f"[10 unpack] unpack.main on {device_name}: {len(cams)} cameras x {FRAMES} "
+        f"frames as 16-bit PNGs in {wall:.3f} s ({wall / FRAMES:.3f} s/frame); host "
+        "stages, seconds summed (entries): " + ", ".join(
+            f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items()))
+    log(f"[10 unpack] ISP {isp_ms:.3f} ms per frame and camera ({W}x{H}, "
+        f"{cfg.demosaic_filter}, sharpening on; CUDA events, batch of {FRAMES}); "
+        f"interior mean error vs the simulator's views: worst camera "
+        f"{max(errs):.5f} (<= {ISP_MEAN_ERR}); ISP on {device_name} vs CPU, "
+        f"{cams[1]}: max-abs {err:.3g} (<= {ISP_STEP_MAX}), off by > 1e-4 on "
+        f"{share:.3%} of values (<= {ISP_FLIPS_MAX:.1%}); native converters equal numpy")
+    return root, painted
+
+
+def _pole_quality(root, rig, painted, views, device):
+    """Pole removal on the unpacked frame-0 PNGs of the two bottom cameras
+    (what the CLI computes first): alpha under the primary mask, and PSNR
+    of the mask's interior to the unpainted view."""
+    import torch
+
+    from surround360_tpu_torch.cli.common import read_image_rgba
+    from surround360_tpu_torch.cli.render_video import _load_pole_mask
+    from surround360_tpu_torch.flow import make_flow_params
+    from surround360_tpu_torch.geometry.camera import approximate_usable_pixels_radius
+    from surround360_tpu_torch.render.pole import combine_bottom_images_with_pole_removal
+
+    i1, i2 = rig.bottom_camera_index, rig.bottom_camera2_index
+    cams = [rig.cameras[i] for i in (i1, i2)]
+    imgs = [torch.from_numpy(read_image_rgba(
+        os.path.join(root, "raw", rig.ids[i], "000000.png"))).to(device) for i in (i1, i2)]
+    H, W = imgs[0].shape[-2:]
+    masks = [_load_pole_mask(os.path.join(root, "masks"), rig.ids[i], (H, W))
+             for i in (i1, i2)]
+    combined, _ = combine_bottom_images_with_pole_removal(
+        *imgs, *masks, *[approximate_usable_pixels_radius(c) for c in cams],
+        bool(np.dot(np.asarray(cams[0].up), np.asarray(cams[1].up)) < 0),
+        make_flow_params(FLOW_ALG))
+    combined = combined.cpu().numpy()
+    y0, y1, x0, x1 = _pole_boxes(H, W)[2]
+    inner = (slice(None, 3), slice(y0, y1), slice(x0, x1))
+    mse = lambda a, b: float(np.mean((a - b) ** 2))
+    psnr = lambda a, b: 10.0 * np.log10(1.0 / max(mse(a, b), 1e-12))
+    return (float(combined[3][masks[0]].min()), psnr(combined[inner], views[i1][inner]),
+            psnr(combined[inner], painted[i1][inner]))
+
+
+def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
+                      device_name="cuda"):
+    """The product's video CLI on the unpacked PNGs: pole removal, cubemap,
+    chained and resumed. Returns the launches per kernel and the recorded
+    calls."""
+    import torch
+
+    from surround360_tpu_torch.cli.common import read_image_rgba
+    from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    common = ["--rig_json_file", os.path.join(root, "rig.json"), "--imgs_dir",
+              os.path.join(root, "raw"), "--quality", preset, "--enable_top",
+              "--enable_bottom", "--enable_pole_removal", "--bottom_pole_masks_dir",
+              os.path.join(root, "masks"), "--cubemap_width", str(cube),
+              "--cubemap_height", str(cube), "--cubemap_format", "video",
+              "--side_flow_alg", FLOW_ALG, "--polar_flow_alg", FLOW_ALG,
+              "--poleremoval_flow_alg", FLOW_ALG, "--device", device_name]
+    chained, states = os.path.join(root, "chained"), os.path.join(root, "state")
+    fw.RECORD = {}
+    fw.reset_launch_counts()
+    state, wall, stages, peak = _video(
+        common + ["--output_dir", chained, "--start_frame", "0", "--end_frame",
+                  str(FRAMES - 1), "--save_state_dir", states])
+    k1_sites = {s: fw.launch_count(fw.K1, s) for s in K1_SITES + K1_PRODUCT_SITES}
+    k3_sites = {s: fw.launch_count(fw.K3, s) for s in FLOW_SITES + (POLE_REMOVAL_FLOW,)}
+    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
+    record, fw.RECORD = fw.RECORD, None
+    if device_name == "cuda":
+        missing = [s for s, n in {**k1_sites, **k3_sites}.items() if n == 0]
+        if missing:
+            raise AssertionError(f"no kernel launch at {missing}: {k1_sites} {k3_sites}")
+        if launches[fw.K2]:
+            raise AssertionError(f"K2 launched on the product path: {launches}")
+    if not all(bool(torch.isfinite(v).all()) for v in state.values()):
+        raise AssertionError("non-finite temporal state")
+    _, _, fin_w, fin_h = QUALITY_PRESETS[preset]
+    want = {"eqr": (4, fin_h, fin_w), "cube": (4, 2 * 2 * cube, 3 * cube)}
+    read = lambda out, kind, f: read_image_rgba(
+        os.path.join(out, "eqr_frames", f"{kind}_{f:06d}.png"))
+    last = {}
+    for kind, shape in want.items():
+        for f in range(FRAMES):
+            last[kind] = read(chained, kind, f)
+            if last[kind].shape != shape or not np.isfinite(last[kind]).all():
+                raise AssertionError(f"bad {kind} frame {f}: {last[kind].shape} != {shape}")
+    loop_s = stages["loop"][1]
+    log(f"[11 product cli] render_video {preset} {FLOW_ALG} with pole removal and a "
+        f"{cube} px cubemap, {FRAMES} frames: {loop_s / FRAMES:.3f} s/frame "
+        f"({loop_s:.3f} s loop, {wall:.1f} s with context), peak {peak:.2f} GiB, "
+        f"equirect {want['eqr'][1:]}, cubemap {want['cube'][1:]}, K1 sites {k1_sites}, "
+        f"K3 sites {k3_sites}, launches {launches}")
+    log("[11 product cli] loop stages, seconds summed (entries): " + ", ".join(
+        f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items()))
+
+    resumed = os.path.join(root, "resumed")
+    f1 = FRAMES - 1
+    _, wall, _, _ = _video(
+        common + ["--output_dir", resumed, "--start_frame", str(f1), "--end_frame",
+                  str(f1), "--resume_state",
+                  os.path.join(states, f"state_{f1 - 1:06d}.pkl")])
+    errs = {kind: float(np.abs(read(resumed, kind, f1) - last[kind]).max())
+            for kind in want}
+    log(f"[11 product cli] frame {f1} resumed from state_{f1 - 1:06d}.pkl ({wall:.1f} s "
+        f"with context and IO): max-abs vs chained {errs} (must be 0)")
+    if any(errs.values()):
+        raise AssertionError(f"resumed frame differs: {errs}")
+
+    alpha, p_clean, p_pole = _pole_quality(root, rig, painted, views,
+                                           torch.device(device_name))
+    log(f"[11 product cli] pole removal on the unpacked bottom frames: alpha under the "
+        f"primary mask >= {alpha:.3f} (> 0.9), mask interior vs the unpainted view "
+        f"{p_clean:.2f} dB (>= {POLE_PSNR_MIN}), vs the painted one {p_pole:.2f} dB")
+    if alpha <= 0.9 or p_clean < POLE_PSNR_MIN or p_clean < p_pole + 10.0:
+        raise AssertionError(f"pole not removed: alpha {alpha}, {p_clean} / {p_pole} dB")
+    return launches, record
+
+
+def phase_product_sites(record):
+    """The recorded calls of the product path's new kernel sites: K1 at the
+    cubemap's two remaps and the pole-removal warp, K3 at the pole-removal
+    flow (per offset set), as phases 5 and 8."""
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    k1 = [_site_check("12 new sites", (fw.K1, site, None), record,
+                      record[(fw.K1, site, None)][3] / FRAMES)
+          for site in K1_PRODUCT_SITES]
+    d = lambda offs: max(abs(v) for o in offs for v in o)
+    keys = sorted((k for k in record if k[:2] == (fw.K3, POLE_REMOVAL_FLOW)),
+                  key=lambda k: -d(k[2]))
+    if not keys:
+        raise AssertionError("no K3 record at the pole-removal flow")
+    k3 = [_site_check("12 new sites", k, record, record[k][3] / FRAMES) for k in keys]
+    return k1, k3
+
+
+DEBUG_FILES = ([f"crop_cam{i}.png" for i in range(1, 15)]
+               + ["spherical_l.png", "spherical_r.png", "top_strip.png",
+                  "bottom_strip.png"]
+               + [f"{pole}_warped_{eye}.png" for pole in ("top", "bottom")
+                  for eye in ("left", "right")])
+
+
+def phase_debug_profile(rig, root, device_name="cuda", small_scale=0.25):
+    """--save_debug_images and --profile_stages at the preview preset, then
+    run_all (unpack, render) on a small footage."""
+    import logging
+
+    from surround360_tpu_torch.capture import render_camera_views
+    from surround360_tpu_torch.cli import render_video, run_all
+    from surround360_tpu_torch.cli.common import read_image_rgba
+    from surround360_tpu_torch.render.profiling import STAGES
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    logger = logging.getLogger("surround360_tpu_torch")
+    logger.addHandler(handler)
+    out = os.path.join(root, "debug_run")
+    t0 = time.perf_counter()
+    try:
+        render_video.main(
+            ["--rig_json_file", os.path.join(root, "rig.json"), "--imgs_dir",
+             os.path.join(root, "raw"), "--output_dir", out, "--quality", "preview",
+             "--enable_top", "--enable_bottom", "--side_flow_alg", FLOW_ALG,
+             "--polar_flow_alg", FLOW_ALG, "--save_debug_images", "--profile_stages",
+             "--device", device_name])
+    finally:
+        logger.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    got = sorted(os.listdir(os.path.join(out, "debug", "000000")))
+    if got != sorted(DEBUG_FILES):
+        raise AssertionError(f"debug tree {got}")
+    table = next((ln for ln in lines if ln.startswith("stage breakdown")), None)
+    if table is None:
+        raise AssertionError("--profile_stages logged no stage table")
+    named = [ln.split()[0] for ln in table.splitlines()[1:]]
+    if not set(STAGES) <= set(named):
+        raise AssertionError(f"stage table lacks {set(STAGES) - set(named)}")
+    log(f"[13 debug] preview frame with --save_debug_images --profile_stages in "
+        f"{wall:.1f} s: {len(got)} debug images; the table:")
+    for ln in table.splitlines():
+        log(f"[13 debug] {ln}")
+
+    small = os.path.join(WORK, "small")
+    shutil.rmtree(small, ignore_errors=True)
+    rig_s = rig.rescaled(small_scale)
+    _write_capture(small, rig_s, render_camera_views(rig_s), FRAMES)
+    dest = os.path.join(small, "dest")
+    t0 = time.perf_counter()
+    run_all.main(
+        ["--steps", "unpack,render", "--binary_prefix", os.path.join(small, "bins"),
+         "--isp_dir", os.path.join(small, "isp"), "--rig_json_file",
+         os.path.join(small, "rig.json"), "--dest_dir", dest, "--quality", "preview",
+         "--frame_count", str(FRAMES), "--enable_top", "--enable_bottom",
+         "--flow_alg", FLOW_ALG, "--device", device_name])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(dest, "runtimes.txt")) as f:
+        runtimes = f.read().splitlines()
+    if [ln.split(":")[0] for ln in runtimes] != ["unpack", "render"]:
+        raise AssertionError(f"runtimes.txt: {runtimes}")
+    for f in range(FRAMES):
+        img = read_image_rgba(os.path.join(dest, "eqr_frames", f"eqr_{f:06d}.png"))
+        if img.shape != (4, 1008, 1008) or not np.isfinite(img).all():
+            raise AssertionError(f"run_all frame {f}: {img.shape}")
+    res = int(rig_s.cameras[0].resolution[0])
+    log(f"[13 debug] run_all --steps unpack,render, preview, {res} px cameras, "
+        f"{FRAMES} frames in {wall:.1f} s; runtimes.txt: {'; '.join(runtimes)}")
+
+
 def _kernel_entry(name, launches, small_err, sites, nvcc_s):
     """One kernel of the kernels line: times summed over its recorded
     calls (``sites``), each of which is listed with its own numbers."""
@@ -786,6 +1253,95 @@ def _kernel_entry(name, launches, small_err, sites, nvcc_s):
     }
 
 
+def quick():
+    """``--quick``: the short check to run first after a kernel change
+    (about 40 s). Phases 1-3, then K1 and K3 at the shapes the 6k product
+    path gives them, on random inputs and without the pipeline around them:
+    the cubemap's two remaps of a 6300x3072 panorama into 1536 px faces,
+    the pole-removal warp of a 2048x2048 image under a smooth random flow
+    of a few tens of px, and the pole-removal flow of a 2048x2048 pair,
+    each recorded call against its twin and with phase 5's numbers; last
+    the ISP of two 2048x2048 frames on the card against the CPU, and its ms
+    a frame for each demosaic filter. A time that depends on the data (the
+    pole-removal warp's and flow's) differs from the product's."""
+    import torch
+
+    from surround360_tpu_torch.flow import HINT_DOWN, compute_flow, make_flow_params
+    from surround360_tpu_torch.isp.pipeline import IspConfig, isp_process
+    from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.ops.resize import gaussian_blur
+    from surround360_tpu_torch.ops.window_sampler import sample_displaced
+    from surround360_tpu_torch.render.panorama import RenderConfig, _cubemap
+
+    smi = phase_device()
+    phase_build()
+    _, failed = phase_small()
+    if failed:
+        raise AssertionError(f"phase 3 failed: {failed}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
+
+    # the cubemap of one eye at 6k
+    ctx = SimpleNamespace(plans={}, config=RenderConfig(
+        eqr_width=6300, eqr_height=3072, cubemap_width=CUBE, cubemap_height=CUBE))
+    pano = rand(3, 3072, 6300)
+    fw.RECORD = {}
+    for label in ("with its host plans", "planned"):
+        t0 = time.perf_counter()
+        cube = _cubemap(ctx, pano)
+        torch.cuda.synchronize()
+        log(f"[sites] cubemap {tuple(cube.shape)} {label}: "
+            f"{time.perf_counter() - t0:.4f} s")
+    # the pole-removal warp: 2048 x 2048, halos of 10% of the frame
+    H = W = 2048
+    halo = int(0.10 * H)
+    flow = gaussian_blur((rand(2, H, W) - 0.5) * 4000.0, 40.0).clamp(-halo, halo)
+    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    sample_displaced(rand(4, H, W), gx + flow[0], gy + flow[1], halo_y=halo,
+                     halo_x=halo, interpolation="bicubic", border="constant", tr=16,
+                     tc=128, max_window_elems=64 * 1024 * 1024, site="pole_removal_warp")
+    record, fw.RECORD = fw.RECORD, None
+    log(f"[sites] random flow of {float(flow.min()):.1f} .. {float(flow.max()):.1f} px")
+    for site in K1_PRODUCT_SITES:
+        _site_check("sites", (fw.K1, site, None), record, 1)
+
+    # the pole-removal flow: one 2048 x 2048 pair
+    a = rand(1, 4, H, W)
+    a[:, 3] = 1.0
+    b = torch.roll(a, (3, 5), dims=(-2, -1))
+    a, b = gaussian_blur(a, 3.0), gaussian_blur(b, 3.0)
+    fw.RECORD = {}
+    fw.reset_launch_counts()
+    t0 = time.perf_counter()
+    compute_flow(a, b, make_flow_params(FLOW_ALG), site=POLE_REMOVAL_FLOW,
+                 hint=torch.tensor([HINT_DOWN], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    log(f"[sites] {FLOW_ALG} flow of a {W}x{H} pair: {time.perf_counter() - t0:.3f} "
+        f"s, K3 launches {fw.launch_count(fw.K3)}")
+    record, fw.RECORD = fw.RECORD, None
+    d = lambda offs: max(abs(v) for o in offs for v in o)
+    for key in sorted((k for k in record if k[0] == fw.K3), key=lambda k: -d(k[2])):
+        _site_check("sites", key, record, record[key][3])
+
+    # the ISP, card against CPU
+    cfg = IspConfig(**ISP_KW)
+    raw = gaussian_blur(torch.rand((2, H, W), generator=torch.Generator().manual_seed(1)), 2.0)
+    on_card = raw.to(dev)
+    for name in ("edge_aware", "bilinear", "frequency"):
+        c = dataclasses.replace(cfg, demosaic_filter=name)
+        diff = (isp_process(on_card, c).cpu() - isp_process(raw, c)).abs()
+        err, share = float(diff.max()), float((diff > 1e-4).float().mean())
+        ms = cuda_ms(lambda: isp_process(on_card, c)) / raw.shape[0]
+        log(f"[sites] ISP {name}, sharpening on, {W}x{H}: {ms:.3f} ms a frame; "
+            f"card vs CPU max-abs {err:.3g}, off by > 1e-4 on {share:.3%} of values")
+        if err > ISP_STEP_MAX or share > 2 * ISP_FLIPS_MAX:
+            raise AssertionError(f"ISP {name} on the card differs from the CPU")
+    log(f"[sites] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(smi, flush=True)
+
+
 def main():
     import torch
 
@@ -802,24 +1358,34 @@ def main():
     del record
     expect = phase_quality(ctx, inputs, device, "pixflow_tpu", "6 quality")
     cli_launches, record = phase_cli(rig, views)
-    del views
     k3, k2 = phase_flow_sites(record, device)
     del record
     phase_quality(ctx, inputs, device, "pixflow_tpu_offsets", "9 quality", expect)
+    del ctx, inputs, expect
+    torch.cuda.empty_cache()
+    root, painted = phase_unpack(rig, views)
+    product_launches, record = phase_product_cli(rig, root, painted, views)
+    del views, painted
+    k1_new, k3_new = phase_product_sites(record)
+    del record
+    phase_debug_profile(rig, root)
+    shutil.rmtree(WORK, ignore_errors=True)
     if small_failed:
         raise AssertionError(f"phase 3 failed: {small_failed}")
     # ms, cold_ms, plain_ms, library_ms, bound_ms: summed over the recorded
-    # calls (K1: the largest per call site, phase 5; K3: the largest per
-    # flow site and offset set, phase 8; K2: its forced call in phase 8).
-    # launches: the two product paths' runs (phase 4's render_frame and
-    # phase 7's CLI), counted from 0 just before each; K2 has no product
-    # caller, so 0
-    launches = {k: render_launches[k] + cli_launches[k] for k in render_launches}
+    # calls (K1: the largest per call site, phases 5 and 12; K3: the largest
+    # per flow site and offset set, phases 8 and 12; K2: its forced call in
+    # phase 8).
+    # launches: the three product paths' runs (phase 4's render_frame,
+    # phase 7's CLI and phase 11's CLI with pole removal and a cubemap),
+    # counted from 0 just before each; K2 has no product caller, so 0
+    launches = {k: render_launches[k] + cli_launches[k] + product_launches[k]
+                for k in render_launches}
     entries = [
         _kernel_entry(name, launches[name], small[name], sites, nvcc_s)
-        for name, sites in (("fused_window_sample", k1),
+        for name, sites in (("fused_window_sample", k1 + k1_new),
                             ("fused_window_folded", [k2]),
-                            ("fused_window_offsets", k3))
+                            ("fused_window_offsets", k3 + k3_new))
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
@@ -829,4 +1395,6 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], ["--quick"]):
+        sys.exit("usage: python3 chip_smoke.py [--quick]")
+    quick() if sys.argv[1:] else main()

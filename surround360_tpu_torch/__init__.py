@@ -10,9 +10,13 @@ to PyTorch on an NVIDIA Hopper GPU. The sub-packages mirror the reference:
                   kernel, with their plain PyTorch twins.
 - ``flow``      — pyramidal patch-match optical flow, every preset.
 - ``views``     — flow-based novel-view synthesis.
-- ``render``    — the stereo equirect panorama renderer.
+- ``render``    — the stereo panorama renderer (equirect and cubemap), pole
+                  removal, the per-stage time table.
+- ``isp``       — raw conversion, .bin footage, DNG, and the software ISP.
+- ``native``    — the C++ footage IO (built with g++ at first use).
 - ``capture``   — the capture simulator (inputs and analytic truth).
-- ``cli``       — the video renderer CLI (``render_video``) and its PNG io.
+- ``cli``       — ``run_all`` (unpack -> render -> encode), ``unpack``,
+                  ``raw2rgb``, the video renderer ``render_video``, PNG io.
 
 Device tensors are ``torch.Tensor`` on the device of their inputs; host
 geometry stays float64 numpy. The package never imports ``jax``.

@@ -23,6 +23,7 @@ import zlib
 from contextlib import contextmanager
 
 import numpy as np
+import torch
 
 log = logging.getLogger("surround360_tpu_torch")
 
@@ -36,6 +37,20 @@ def setup_logging(verbose: bool = False):
         level=logging.DEBUG if verbose else logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s] %(message)s",
     )
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on; CUDA must be there when asked
+    for (no silent fall back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available (pass --device cpu to "
+            "run on the CPU)"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device: {name}")
+    return device
 
 
 class StageTimer:

@@ -10,12 +10,16 @@ built on the port's eager :func:`~..render.panorama.render_frame`:
         --polar_flow_alg pixflow_tpu_offsets --save_state_dir state
 
 renders frames [start, end] from ``imgs_dir/<camera id>/<frame>.png`` to
-``output_dir/eqr_frames/eqr_<frame>.png``, carrying the temporal flow state
-from frame to frame on the device. With ``--save_state_dir`` each frame's
-state is pickled (numpy arrays; the reference's ``pole:`` keys are kept
-as they are) and the state two frames back is deleted once this frame's
-save succeeded; ``--resume_state`` continues from such a pickle, written
-by either package.
+``output_dir/eqr_frames/eqr_<frame>.png`` (and ``cube_<frame>.png`` with
+``--cubemap_width`` / ``--cubemap_height``), carrying the temporal flow
+state from frame to frame on the device. ``--enable_pole_removal`` merges
+the two bottom cameras first (``render.pole``; red-painted masks named
+``<camera id>.png`` in ``--bottom_pole_masks_dir``), with its own flow
+prior carried the same way. With ``--save_state_dir`` each frame's state
+is pickled (numpy arrays; the pole-removal prior under ``pole:`` keys) and
+the state two frames back is deleted once this frame's save succeeded;
+``--resume_state`` continues from such a pickle, written by either
+package.
 
 The loop is one frame deep, as in the reference: frame t is dispatched
 before frame t-1's outputs are fetched, PNG encoding and state pickling
@@ -26,10 +30,14 @@ when there is none; ``--device cpu`` renders on the CPU. A
 :class:`~.common.StageTimer` collects the loop's host-side stages (see
 :func:`render_video`) and the breakdown is logged at the end.
 
-Not ported yet (they raise ``NotImplementedError`` before any frame is
-read): pole removal and cubemap output (ROADMAP A10), ``--save_debug_images``
-and ``--profile_stages`` (ROADMAP A11b); the reference's jitted and staged
-renderer has no counterpart.
+``--save_debug_images`` writes each frame's intermediates under
+``output_dir/debug/<frame>/`` (the side projections as ``crop_<camera
+id>.png``, ``spherical_l|r``, the poles' ``*_strip`` and per-eye
+``*_warped_left|right``) and runs the loop synchronously, the poles one at
+a time. ``--profile_stages`` logs the per-stage time table of
+``render.profiling`` on the first frame's inputs before rendering. The
+reference's jitted and staged renderer has no counterpart: every frame
+renders eagerly.
 """
 
 from __future__ import annotations
@@ -43,15 +51,25 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..flow import make_flow_params
 from ..geometry.rig import load_rig
 from ..render.panorama import (
     RenderConfig,
     build_render_context,
     render_frame,
-    state_from_numpy,
-    state_to_numpy,
+    state_from_blob,
+    state_to_blob,
 )
-from .common import StageTimer, log, read_image_rgba, setup_logging, write_image
+from ..render.pole import combine_bottom_images_with_pole_removal
+from ..render.profiling import format_breakdown, stage_breakdown
+from .common import (
+    StageTimer,
+    log,
+    read_image_rgba,
+    resolve_device,
+    setup_logging,
+    write_image,
+)
 
 QUALITY_PRESETS = {
     # name -> (eqr_width, eqr_height, final_width, final_height); the final
@@ -72,31 +90,38 @@ PRESET_SHARPENING = 0.25
 PRESET_SIDE_FLOW_SCALE = {"6k": 0.5, "8k": 0.5}
 
 
-def _check_ported(config: RenderConfig, save_debug_images: bool,
-                  profile_stages: bool) -> None:
-    """Raise for the reference's options the port does not have yet."""
-    if config.enable_pole_removal:
-        raise NotImplementedError("--enable_pole_removal: pole removal is ROADMAP A10")
-    if config.cubemap_width or config.cubemap_height or config.cubemap_format != "video":
-        raise NotImplementedError("--cubemap_*: cubemap output is ROADMAP A10")
-    if save_debug_images:
-        raise NotImplementedError("--save_debug_images is ROADMAP A11b")
-    if profile_stages:
-        raise NotImplementedError("--profile_stages is ROADMAP A11b")
+# debug layers written per frame, where the frame has them
+_DEBUG_KEYS = ("spherical_l", "spherical_r", "top_strip", "top_warped",
+               "bottom_strip", "bottom_warped")
 
 
-def _resolve_device(name: str) -> torch.device:
-    """The render device; CUDA must be there when asked for (no silent
-    fall back to the CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: CUDA is not available (pass --device cpu to "
-            "render on the CPU)"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device: {name}")
-    return device
+def _load_pole_mask(masks_dir, cam_id, hw) -> np.ndarray:
+    """Red pole mask PNG -> (H, W) bool (True where the pole is); all
+    False without a masks directory or a file for this camera."""
+    if masks_dir is None:
+        return np.zeros(hw, dtype=bool)
+    path = os.path.join(masks_dir, f"{cam_id}.png")
+    if not os.path.exists(path):
+        return np.zeros(hw, dtype=bool)
+    rgba = read_image_rgba(path)
+    return (rgba[0] > 0.99) & (rgba[1] < 0.01) & (rgba[2] < 0.01)
+
+
+def _write_debug_images(dbg_dir: str, debug: dict, side_ids) -> None:
+    """The frame's intermediates as PNGs (the reference's
+    --save_debug_images tree)."""
+    os.makedirs(dbg_dir, exist_ok=True)
+    for cam_id, proj in zip(side_ids, debug["projections"].cpu().numpy()):
+        write_image(os.path.join(dbg_dir, f"crop_{cam_id}.png"), proj)
+    for key in _DEBUG_KEYS:
+        if key not in debug:
+            continue
+        arr = debug[key].cpu().numpy()
+        if arr.ndim == 4:  # (2, 4, H, W) per-eye layers
+            for eye, name in enumerate(("left", "right")):
+                write_image(os.path.join(dbg_dir, f"{key}_{name}.png"), arr[eye])
+        else:
+            write_image(os.path.join(dbg_dir, f"{key}.png"), arr)
 
 
 def render_video(
@@ -121,52 +146,51 @@ def render_video(
     ``timer`` (a fresh one when None) receives one entry per frame for each
     stage: ``decode`` (the cameras' PNGs, on the writer thread, overlapping
     the previous frame), ``wait_inputs`` (the loop blocked on that decode),
-    ``render`` (``render_frame``), ``fetch`` (the output to the host),
-    ``encode`` (the output PNG, writer thread) and ``save_state`` (writer
+    ``pole_removal`` (with pole removal: the two bottom cameras combined),
+    ``render`` (``render_frame``), ``fetch`` (the outputs to the host),
+    ``encode`` (each output PNG, writer thread) and ``save_state`` (writer
     thread); then ``drain`` (the loop waiting for the writer) and ``loop``
     (the whole frame loop)."""
-    del pole_masks_dir  # read by pole removal only (ROADMAP A10)
-    _check_ported(config, save_debug_images, profile_stages)
     timer = StageTimer() if timer is None else timer
-    device = _resolve_device(device)
+    device = resolve_device(device)
     rig = load_rig(rig_json)
     ctx = build_render_context(rig, config)
     os.makedirs(os.path.join(output_dir, "eqr_frames"), exist_ok=True)
 
-    # the pickle holds the ring state and the reference's pole-removal
-    # prior ("pole:" keys); the port carries the latter through unchanged
+    # the pickle holds the ring state and the pole-removal prior ("pole:"
+    # keys): the reference persists the pole flow per frame and re-reads it
+    # (PoleRemoval.cpp:120-128), so a resumed render restores both
     state = None
     pole_state: dict = {}
     if resume_state:
         with open(resume_state, "rb") as f:
-            blob = pickle.load(f)
-        pole_state = {k: v for k, v in blob.items() if k.startswith("pole:")}
-        ring = {k: v for k, v in blob.items() if not k.startswith("pole:")}
-        state = state_from_numpy(ring, device) if ring else None
+            state, pole_state = state_from_blob(pickle.load(f), device)
         log.info("resumed temporal state from %s (%d ring keys, %d pole keys)",
-                 resume_state, len(ring), len(pole_state))
+                 resume_state, len(state or {}), len(pole_state))
 
     writer = ThreadPoolExecutor(max_workers=2)
     write_futs: list = []
-    pending = None  # (frame_name, outputs, state, t_dispatch)
+    pending = None  # (frame_name, outputs, state, pole_state, t_dispatch)
 
     def _flush(pend):
         """Fetch a dispatched frame's outputs (waits for the device) and
         hand PNG encoding and state pickling to the writer thread."""
-        frame_name, outputs, state_, t_disp = pend
+        frame_name, outputs, state_, pole_state_, t_disp = pend
         with timer.stage("fetch"):
-            eqr = outputs["equirect"].cpu().numpy()
-        eqr_path = os.path.join(output_dir, "eqr_frames", f"eqr_{frame_name}.png")
+            images = {"eqr": outputs["equirect"].cpu().numpy()}
+            if "cubemap" in outputs:
+                images["cube"] = outputs["cubemap"].cpu().numpy()
 
-        def _encode(eqr=eqr, eqr_path=eqr_path):
+        def _encode(path, img):
             with timer.stage("encode"):
-                write_image(eqr_path, eqr)
+                write_image(path, img)
 
-        write_futs.append(writer.submit(_encode))
+        for kind, img in images.items():
+            path = os.path.join(output_dir, "eqr_frames", f"{kind}_{frame_name}.png")
+            write_futs.append(writer.submit(_encode, path, img))
         if save_state_dir:
             os.makedirs(save_state_dir, exist_ok=True)
-            blob = state_to_numpy(state_ or {})
-            blob.update(pole_state)
+            blob = state_to_blob(state_, pole_state_)
 
             def _save_state(blob=blob, frame_name=frame_name):
                 path = os.path.join(save_state_dir, f"state_{frame_name}.pkl")
@@ -192,8 +216,39 @@ def render_video(
         log.info("frame %s rendered in %.2fs", frame_name, time.time() - t_disp)
 
     poles = [k for k in ("top", "bottom") if getattr(config, f"enable_{k}")]
-    pole_ids = [rig.ids[getattr(rig, f"{k}_camera_index")] for k in poles]
+    pole_removal = config.enable_bottom and config.enable_pole_removal
+    if pole_removal:
+        poles.append("bottom2")
+    cam_index = {"top": "top_camera_index", "bottom": "bottom_camera_index",
+                 "bottom2": "bottom_camera2_index"}
+    pole_ids = [rig.ids[getattr(rig, cam_index[k])] for k in poles]
     decoder = ThreadPoolExecutor(max_workers=8)
+    masks: dict = {}  # camera id -> (H, W) bool tensor, read at the first frame
+
+    def _pole_mask(cam_id: str, hw):
+        if cam_id not in masks:
+            masks[cam_id] = torch.from_numpy(
+                _load_pole_mask(pole_masks_dir, cam_id, tuple(hw))).to(device)
+        return masks[cam_id]
+
+    def _remove_pole(bottom, bottom2):
+        """(combined bottom image, the next frame's pole-removal prior)."""
+        ids = dict(zip(poles, pole_ids))
+        combined, pole_flow = combine_bottom_images_with_pole_removal(
+            bottom, bottom2,
+            _pole_mask(ids["bottom"], bottom.shape[-2:]),
+            _pole_mask(ids["bottom2"], bottom2.shape[-2:]),
+            ctx.bottom_usable_radius, ctx.bottom2_usable_radius,
+            ctx.pole_flip180, make_flow_params(config.poleremoval_flow_alg),
+            config.std_alpha_feather_size,
+            prev_flow=pole_state.get("pole_flow"),
+            prev_bottom=pole_state.get("prev_bottom"),
+            prev_bottom2=pole_state.get("prev_bottom2"),
+            use_temporal="pole_flow" in pole_state,
+        )
+        # as the reference keeps it: the combined primary, the raw secondary
+        return combined, {"pole_flow": pole_flow, "prev_bottom": combined,
+                          "prev_bottom2": bottom2}
 
     def _read_frame_inputs(frame: int) -> dict:
         """Decode one frame's camera PNGs on the host (prefetchable), the
@@ -225,15 +280,31 @@ def render_video(
                 ins = read_fut.result()
             if frame < end_frame:
                 read_fut = writer.submit(_read_frame_inputs, frame + 1)
+            side, top, bottom = (to_dev(ins.get(k)) for k in ("side", "top", "bottom"))
+            if pole_removal:
+                with timer.stage("pole_removal"):
+                    bottom, pole_state = _remove_pole(bottom, to_dev(ins["bottom2"]))
+            if profile_stages and frame == start_frame:
+                # the analog of the reference's per-frame stage log
+                # (TestRenderStereoPanorama.cpp:963-971)
+                log.info("%s", format_breakdown(*stage_breakdown(ctx, side, top, bottom)))
             with timer.stage("render"):
                 outputs, state = render_frame(
-                    ctx, to_dev(ins["side"]), to_dev(ins.get("top")),
-                    to_dev(ins.get("bottom")), state=state,
-                    use_temporal=state is not None,
+                    ctx, side, top, bottom, state=state,
+                    use_temporal=state is not None, save_debug=save_debug_images,
                 )
-            # one frame deep: fetch the previous frame only now
-            prev_pending, pending = pending, (f"{frame:06d}", outputs, state, t0)
-            if prev_pending is not None:
+            frame_name = f"{frame:06d}"
+            if save_debug_images:
+                _write_debug_images(os.path.join(output_dir, "debug", frame_name),
+                                    outputs["debug"], rig.side_ids)
+            # one frame deep: fetch the previous frame only once this one is
+            # in the device's queue; the debug path stays synchronous
+            prev_pending = pending
+            pending = (frame_name, outputs, state, pole_state, t0)
+            if save_debug_images:
+                _flush(pending)
+                pending = None
+            elif prev_pending is not None:
                 _flush(prev_pending)
             _surface_writer_errors()
         if pending is not None:

@@ -2,6 +2,7 @@ from .camera import (  # noqa: F401
     FTHETA,
     RECTILINEAR,
     Camera,
+    approximate_usable_pixels_radius,
     camera_from_json,
     camera_to_json,
     create_rescaled_camera,

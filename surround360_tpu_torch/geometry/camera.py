@@ -241,6 +241,21 @@ def is_outside_fov(cam: Camera, pts_rig):
     return np.where(cam.fov_threshold == -1.0, False, general)
 
 
+def approximate_usable_pixels_radius(cam: Camera) -> float:
+    """Closest approach of the fov cone to the image center, in pixels
+    (Camera.h:201-212)."""
+    fov = get_fov(cam)
+    angles = np.arange(10) * (2 * np.pi / 10.0)
+    ortho = (
+        np.cos(angles)[:, None] * np.asarray(cam.right)
+        + np.sin(angles)[:, None] * np.asarray(cam.up)
+    )
+    direction = np.cos(fov) * np.asarray(cam.forward) + np.sin(fov) * ortho
+    pix = world_to_pixel(cam, np.asarray(cam.position) + direction)
+    d = np.linalg.norm(pix - np.asarray(cam.resolution) / 2.0, axis=-1)
+    return float(min(np.linalg.norm(np.asarray(cam.resolution)), d.min()))
+
+
 def camera_from_json(obj: dict) -> tuple[Camera, str, str]:
     """Parse one camera dict (RIG_JSON.md). Returns (Camera, id, group)."""
     if float(obj["version"]) < 1.0:

@@ -86,6 +86,12 @@ class Rig:
         return self.find_camera_by_direction([0.0, 0.0, -1.0])
 
     @property
+    def bottom_camera2_index(self) -> int:
+        # secondary bottom camera = largest distance cam axis to rig center
+        dists = [self._dist_cam_axis_to_rig_center(c) for c in self.cameras]
+        return int(np.argmax(dists))
+
+    @property
     def ring_radius(self) -> float:
         return float(np.linalg.norm(np.asarray(self.side_cameras[0].position)))
 

@@ -1,6 +1,7 @@
 """Alpha compositing / deghosting / panorama assembly primitives.
 
-Port of the renderer's half of ``surround360_tpu/ops/compositing.py``
+Port of the renderer's and pole removal's parts of
+``surround360_tpu/ops/compositing.py``
 (reference: surround360_render/source/util/CvUtil.cpp) as elementwise
 torch on channels-first (..., 4, H, W) RGBA float32 in [0,1].
 """
@@ -16,6 +17,8 @@ __all__ = [
     "stack_horizontal",
     "offset_horizontal_wrap",
     "feather_alpha",
+    "circle_alpha_cut",
+    "cut_mask_out_of_alpha",
     "flatten_layers_deghost_prefer_base",
 ]
 
@@ -80,7 +83,29 @@ def feather_alpha(image: torch.Tensor, erode_size: int = 3) -> torch.Tensor:
     alpha = image[..., 3, :, :]
     alpha = _erode_cross(alpha, erode_size)
     alpha = gaussian_blur(alpha, erode_size / 2.0)
+    return _with_alpha(image, alpha)
+
+
+def _with_alpha(image: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.cat([image[..., :3, :, :], alpha[..., None, :, :]], dim=-3)
+
+
+def circle_alpha_cut(image: torch.Tensor, radius: float) -> torch.Tensor:
+    """Alpha = 1 inside a centered circle of ``radius`` px, 0 outside
+    (CvUtil.cpp:201-211)."""
+    H, W = image.shape[-2:]
+    ys = torch.arange(H, dtype=torch.float32, device=image.device)[:, None] - H / 2.0
+    xs = torch.arange(W, dtype=torch.float32, device=image.device)[None, :] - W / 2.0
+    inside = (ys * ys + xs * xs) < (radius * radius)
+    alpha = inside.to(image.dtype).expand(image[..., 3, :, :].shape)
+    return _with_alpha(image, alpha)
+
+
+def cut_mask_out_of_alpha(image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero alpha where ``mask`` (H, W) bool is set (the red-pole-mask cut,
+    CvUtil.cpp:213-222)."""
+    alpha = image[..., 3, :, :]
+    return _with_alpha(image, torch.where(mask, torch.zeros_like(alpha), alpha))
 
 
 def flatten_layers_deghost_prefer_base(

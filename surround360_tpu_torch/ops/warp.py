@@ -1,6 +1,7 @@
-"""Warp fields: camera <-> equirect strips (host float64 numpy).
+"""Warp fields: camera <-> equirect strips and equirect -> cubemap faces
+(host float64 numpy).
 
-Port of the renderer's half of ``surround360_tpu/ops/warp.py`` (reference:
+Port of the renderer's part of ``surround360_tpu/ops/warp.py`` (reference:
 surround360_render/source/render/ImageWarper.{h,cpp}). Warp fields are
 (2, H, W) float32 coords (x, y) in source pixel units, integer = pixel
 center (the reference's ``pixel - 0.5`` correction, ImageWarper.cpp:166).
@@ -18,6 +19,8 @@ __all__ = [
     "rig_fov",
     "spherical_warp_for_camera",
     "side_cam_spherical_warp",
+    "CUBEMAP_FACE_ORDER",
+    "equirect_to_cubemap_warp",
 ]
 
 
@@ -92,3 +95,52 @@ def side_cam_spherical_warp(
         -v_radians / 2.0,
     )
     return warp, (strip_h, strip_w)
+
+
+# face order matches convertSphericalToCubemapBicubicRemap
+# (ImageWarper.cpp:101-108)
+CUBEMAP_FACE_ORDER = ("right", "left", "top", "bottom", "back", "front")
+
+
+def _cubemap_dir(x, y, face: str):
+    """Face-local (x, y, 0.5) -> direction (ImageWarper.cpp:26-63)."""
+    half = np.full_like(x, 0.5)
+    if face == "back":
+        return x, half, -y
+    if face == "left":
+        return -half, x, -y
+    if face == "top":
+        return x, y, half
+    if face == "bottom":
+        return x, -y, -half
+    if face == "front":
+        return -x, -half, -y
+    if face == "right":
+        return half, -x, -y
+    raise ValueError(face)
+
+
+def equirect_to_cubemap_warp(
+    eqr_hw: tuple[int, int],
+    face_wh: tuple[int, int],
+    face: str,
+    fisheye_fov_radians: float = np.pi,
+) -> np.ndarray:
+    """Warp (2, faceH, faceW) sampling an equirect image into one cubemap
+    face (mapEquirectToCubemapCoordinate, ImageWarper.cpp:65-93). Use with
+    border='wrap' like the reference's BORDER_WRAP remap."""
+    eqr_h, eqr_w = eqr_hw
+    face_w, face_h = face_wh
+    xs = np.arange(face_w, dtype=np.float64) / face_w - 0.5
+    ys = np.arange(face_h, dtype=np.float64) / face_h - 0.5
+    yy, xx = np.meshgrid(ys, xs, indexing="ij")
+    dx, dy, dz = _cubemap_dir(xx, yy, face)
+    norm = np.sqrt(dx * dx + dy * dy + dz * dz)
+    phi = np.arccos(np.clip(dz / norm, -1.0, 1.0))
+    theta = np.arctan2(dy, dx)  # quadrant-correct form of ImageWarper.cpp:77-87
+    theta = np.where(theta < 0, theta + 2.0 * np.pi, theta)
+    phi_p = np.clip(phi, 0.0, fisheye_fov_radians)
+    theta_p = np.clip(theta, 0.0, 2.0 * np.pi)
+    src_x = eqr_w * theta_p / (2.0 * np.pi)
+    src_y = eqr_h * phi_p / fisheye_fov_radians
+    return np.stack([src_x, src_y], axis=0).astype(np.float32)

@@ -11,8 +11,8 @@ a gather of the taps with the window mask (``fused_window.window_gather``).
 
 - :func:`plan_windows` / :func:`plan_windows_budgeted`: the reference's
   static tile geometry, verbatim.
-- :func:`sample_displaced`: static windows at ``tile * stride - pad``
-  (plain torch).
+- :func:`sample_displaced`: static windows at ``tile * stride - pad``,
+  sampled by the fused window kernel (K1) with per-tile origins.
 - :func:`make_window_sampler`: the flow's reusable sampler, with the
   reference's two routes: fused (the lead-folded kernels K2 / K3, where
   the reference takes Pallas) or plain (its XLA fallback), chosen by the
@@ -179,15 +179,51 @@ def _sample_static(img, plan: WindowPlan, x, y):
     return out.reshape(extra + lead + (C, p.Ho, p.Wo))
 
 
+def _untile(out, p: WindowPlan, lead):
+    """(T, L, C, tr * tc) kernel output -> lead + (Ho, Wo), lead = the
+    source's leading dims with its channels."""
+    LC = out.shape[1] * out.shape[2]
+    out = out.reshape(p.nty, p.ntx, LC, p.tr, p.tc)
+    out = out.permute(2, 0, 3, 1, 4).reshape(LC, p.nty * p.tr, p.ntx * p.tc)
+    return out[..., : p.Ho, : p.Wo].reshape(tuple(lead) + (p.Ho, p.Wo))
+
+
+def _sample_static_fused(img, plan: WindowPlan, x, y, site: str):
+    """Static-window sampling by the fused window kernel. img (B..., C, H,
+    W); x, y (B..., Ho, Wo). Tile (ty, tx)'s window starts at (ty * tr -
+    pad_y, tx * tc - pad_x) of the source itself: the first and last
+    windows reach past the array, where the kernel reads nothing. Values
+    equal :func:`_sample_static`'s."""
+    p = plan
+    lead = img.shape[:-2]  # includes channels
+    C, H, W = img.shape[-3:]
+    if tuple(x.shape[:-2]) != tuple(lead[:-1]):
+        raise ValueError("coords must share img's lead dims")
+    L = int(np.prod(lead[:-1], dtype=np.int64))
+    tiles = torch.arange(p.nty * p.ntx, device=img.device)
+    sy = (tiles // p.ntx) * p.tr - p.pad_y if p.nty > 1 else tiles * 0
+    sx = (tiles % p.ntx) * p.tc - p.pad_x if p.ntx > 1 else tiles * 0
+    out = fused_window_sample(
+        img.reshape(L, C, H, W).float(),
+        sy.to(torch.int32)[:, None].expand(-1, L).contiguous(),
+        sx.to(torch.int32)[:, None].expand(-1, L).contiguous(),
+        _tile_coords(x.reshape(L, p.Ho, p.Wo), p),
+        _tile_coords(y.reshape(L, p.Ho, p.Wo), p),
+        bh=p.bh, bw=p.bw, pad_y=0, pad_x=0, n_y=H, n_x=W,
+        interpolation=p.interpolation, border=p.border, site=site,
+    )  # (T, L, C, P)
+    return _untile(out, p, lead)
+
+
 def sample_displaced(
     img, x, y, halo_y: int, halo_x: int,
     interpolation: str = "bilinear", border: str = "clamp",
-    tr: int = 8, tc: int = 128, max_window_elems: int = 0,
+    tr: int = 8, tc: int = 128, max_window_elems: int = 0, site: str = "",
 ):
     """Static windows around each output tile. img (..., C, H, W); x, y
     (..., Ho, Wo) absolute coords with |x - col| <= halo_x, |y - row| <=
     halo_y. max_window_elems > 0 takes the budgeted plan, as the reference
-    does. Returns (..., C, Ho, Wo)."""
+    does. ``site`` labels the kernel's launches. Returns (..., C, Ho, Wo)."""
     if max_window_elems:
         lead_elems = int(np.prod(img.shape[:-2], dtype=np.int64))
         plan = plan_windows_budgeted(
@@ -200,7 +236,7 @@ def sample_displaced(
             img.shape[-2:], x.shape[-2:], halo_y, halo_x, interpolation,
             border, tr, tc,
         )
-    return _sample_static(img, plan, x, y)
+    return _sample_static_fused(img, plan, x, y, site)
 
 
 # The reference's model of one fused-kernel step's TPU memory
@@ -493,6 +529,4 @@ def sample_displaced_residual(
         bh=bh_k, bw=bw_k, pad_y=P_y, pad_x=P_x, n_y=H, n_x=W,
         interpolation=interpolation, border=border, base_bw=p.bw, site=site,
     )  # (T, L, C, P)
-    out = out.reshape(p.nty, p.ntx, L * C, p.tr, p.tc)
-    out = out.permute(2, 0, 3, 1, 4).reshape(L * C, p.nty * p.tr, p.ntx * p.tc)
-    return out[..., : p.Ho, : p.Wo].reshape(lead + (p.Ho, p.Wo))
+    return _untile(out, p, lead)

@@ -9,7 +9,8 @@ reference's production renderer). Per frame:
   ring of N pairs --(28 pair flows, any flow preset)--> novel-view chunks
   top/bottom fisheyes --(static warps)--> strips --(merged pole flow and
   displacement-following warp)--> deghost composite
-  sharpen -> final resize -> stereo equirect (L over R)
+  sharpen -> [cubemap faces of each eye] -> final resize -> stereo
+  equirect (L over R)
 
 Rig-static warps and chunk geometry are precomputed on the host in
 float64 (:class:`RenderContext`, equal to the reference's tables). The
@@ -18,13 +19,16 @@ keys; :func:`state_from_numpy` / :func:`state_to_numpy` convert it, so a
 state from either package can drive the next frame of the other.
 
 Call :func:`render_frame` with float32 tensors; it turns TF32 off, since
-the reference it is held against computes in float32. The staged renderer,
-cubemap output and pole removal of the reference are not ported.
+the reference it is held against computes in float32. With pole removal
+the caller combines the two bottom cameras first (``render.pole``) and
+passes the result as ``bottom_image``. The reference's jitted and staged
+renderer has no counterpart: the port renders eagerly.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Any
 
 import numpy as np
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..flow import HINT_DOWN, compute_flow, make_flow_params
-from ..geometry.camera import get_fov
+from ..geometry.camera import approximate_usable_pixels_radius, get_fov
 from ..geometry.rig import Rig
 from ..ops.compositing import (
     feather_alpha,
@@ -43,7 +47,13 @@ from ..ops.compositing import (
 from ..ops.filters import sharpen_iir
 from ..ops.remap import plan_static_remap, remap_static_planned
 from ..ops.resize import resize_area, resize_bilinear, resize_cubic
-from ..ops.warp import rig_fov, side_cam_spherical_warp, spherical_warp_for_camera
+from ..ops.warp import (
+    CUBEMAP_FACE_ORDER,
+    equirect_to_cubemap_warp,
+    rig_fov,
+    side_cam_spherical_warp,
+    spherical_warp_for_camera,
+)
 from ..ops.window_sampler import sample_displaced, sample_displaced_residual
 from ..utils.math_util import ramp
 from ..views.novel_view import lazy_warp_columns, prepare_pair_flows, render_chunk_pair
@@ -55,6 +65,8 @@ __all__ = [
     "render_frame",
     "state_from_numpy",
     "state_to_numpy",
+    "state_to_blob",
+    "state_from_blob",
 ]
 
 
@@ -111,6 +123,10 @@ class RenderContext:
     bottom_warp: np.ndarray | None = None
     bottom_h: int = 0
     pole_ramp_geometry: dict = field(default_factory=dict)
+    # pole removal
+    bottom_usable_radius: float = 0.0
+    bottom2_usable_radius: float = 0.0
+    pole_flip180: bool = False
     plans: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -132,8 +148,6 @@ class RenderContext:
 def build_render_context(rig: Rig, config: RenderConfig) -> RenderContext:
     """Precompute all rig-static warps and geometry
     (TestRenderStereoPanorama.cpp:138-175, :295-348)."""
-    if config.enable_pole_removal or config.cubemap_width or config.cubemap_height:
-        raise NotImplementedError("pole removal and cubemap output are not ported")
     n = rig.side_camera_count
     if config.eqr_width % n != 0:
         raise ValueError(
@@ -196,6 +210,13 @@ def build_render_context(rig: Rig, config: RenderConfig) -> RenderContext:
             -np.pi / 2.0, -(np.pi / 2.0 - fov),
         )
         ctx.bottom_h = bottom_h
+        if config.enable_pole_removal:
+            cam2 = rig.cameras[rig.bottom_camera2_index]
+            ctx.bottom_usable_radius = approximate_usable_pixels_radius(cam)
+            ctx.bottom2_usable_radius = approximate_usable_pixels_radius(cam2)
+            ctx.pole_flip180 = bool(
+                np.dot(np.asarray(cam.up), np.asarray(cam2.up)) < 0
+            )
 
     if config.enable_top or config.enable_bottom:
         # pole-to-side ramp geometry (TestRenderStereoPanorama.cpp:454-481);
@@ -433,7 +454,7 @@ def _pole_flow_core(ctx: RenderContext, side_pano, fish, prev, use_temporal):
             src_band, gx_b[None] + disp_x, gy_b[None] + disp_y,
             halo_y=halo_y_eff, halo_x=halo_x,
             interpolation="bicubic", border="constant", tr=16, tc=128,
-            max_window_elems=64 * 1024 * 1024,
+            max_window_elems=64 * 1024 * 1024, site="pole_warp",
         )
     warped_ext = torch.cat(
         [ext_fish[..., :r0, :], warped_band, torch.zeros_like(ext_fish[..., r1:, :])],
@@ -492,7 +513,93 @@ def _poles_to_side_flow(ctx: RenderContext, pano2, top_strip, bottom_strip, stat
     return pano2, new_state
 
 
+# equatorial faces have compact per-tile source footprints once their x
+# coords are unwrapped across the theta seam; polar faces sweep every
+# longitude near the pole, so their tiles' windows are as wide as the
+# padded panorama
+_CUBEMAP_EQ_FACES = ("right", "left", "back", "front")
+_CUBEMAP_PO_FACES = ("top", "bottom")
+_CUBEMAP_PAD_TAPS = 3  # bicubic reach
+
+
+@lru_cache(maxsize=8)
+def _plan_cubemap(eqr_h: int, eqr_w: int, face_w: int, face_h: int):
+    """Host plan of the cubemap remap: the stacked face warps with the
+    reference's wrap-x / clamp-y border (ImageWarper.cpp:137) turned into
+    an all-taps-in-bounds constant-border remap of a padded panorama
+    (wrap-padded in x, edge-padded in y). Equatorial faces are unwrapped
+    to continuous x (a 90-degree face straddles at most one of the two
+    arctan branch cuts), so their per-tile windows stay narrow. Returns
+    (eq (2, 4 fh, fw), po (2, 2 fh, fw), pad_l, pad_r) with the coords
+    already shifted into padded units."""
+    eq_warps = []
+    x_min, x_max = 0.0, float(eqr_w - 1)
+    for face in _CUBEMAP_EQ_FACES:
+        w = equirect_to_cubemap_warp((eqr_h, eqr_w), (face_w, face_h), face, np.pi)
+        x = w[0]
+        if x.max() - x.min() > eqr_w / 2:  # straddles the theta=0 seam
+            x = np.where(x > eqr_w / 2, x - eqr_w, x)
+        x_min = min(x_min, float(x.min()))
+        x_max = max(x_max, float(x.max()))
+        eq_warps.append(np.stack([x, w[1]]))
+    po_warps = [
+        equirect_to_cubemap_warp((eqr_h, eqr_w), (face_w, face_h), f, np.pi)
+        for f in _CUBEMAP_PO_FACES
+    ]
+    pad_l = int(np.ceil(max(0.0, -x_min))) + _CUBEMAP_PAD_TAPS
+    pad_r = int(np.ceil(max(0.0, x_max - (eqr_w - 1)))) + _CUBEMAP_PAD_TAPS
+    eq = np.concatenate(eq_warps, axis=-2).astype(np.float32)
+    po = np.concatenate(po_warps, axis=-2).astype(np.float32)
+    for w in (eq, po):
+        w[0] += pad_l
+        w[1] += _CUBEMAP_PAD_TAPS  # y edge-pad shift
+    return eq, po, pad_l, pad_r
+
+
+def _cubemap(ctx, pano_rgb):
+    """Equirect (3, eqr_h, eqr_w) -> stacked cubemap faces
+    (convertSphericalToCubemapBicubicRemap, ImageWarper.cpp:95-141, and
+    stackOutputCubemapFaces, CvUtil.cpp:117-138). The six faces are two
+    static remaps (the four equatorial faces, the two polar ones) of one
+    padded copy of the panorama, through the fused window kernel; their
+    plans are built once per device and kept in ``ctx.plans``."""
+    cfg = ctx.config
+    eqr_h, eqr_w = pano_rgb.shape[-2:]
+    fw_, fh = cfg.cubemap_width, cfg.cubemap_height
+    eq, po, pad_l, pad_r = _plan_cubemap(eqr_h, eqr_w, fw_, fh)
+    padded = torch.cat(
+        [pano_rgb[..., eqr_w - pad_l :], pano_rgb, pano_rgb[..., :pad_r]], dim=-1
+    )
+    t = _CUBEMAP_PAD_TAPS
+    padded = torch.cat(
+        [padded[..., :1, :].expand(-1, t, -1), padded,
+         padded[..., -1:, :].expand(-1, t, -1)], dim=-2,
+    )
+    stacks = []
+    for name, warp in (("cubemap_eq", eq), ("cubemap_po", po)):
+        key = (name, (eqr_h, eqr_w, fw_, fh), str(pano_rgb.device))
+        if key not in ctx.plans:
+            ctx.plans[key] = plan_static_remap(
+                warp[None], *padded.shape[-2:], "bicubic", pano_rgb.device
+            )
+        stacks.append(remap_static_planned(padded[None], ctx.plans[key], site=name)[0])
+    faces = {
+        f: stack[..., i * fh : (i + 1) * fh, :]
+        for stack, names in zip(stacks, (_CUBEMAP_EQ_FACES, _CUBEMAP_PO_FACES))
+        for i, f in enumerate(names)
+    }
+    if cfg.cubemap_format == "video":
+        row = lambda names: torch.cat([torch.flip(faces[f], dims=(-1,)) for f in names], dim=-1)
+        return torch.cat(
+            [row(("left", "right", "top")), row(("bottom", "back", "front"))], dim=-2
+        )
+    # photo: vertical stack in face order
+    return torch.cat([faces[f] for f in CUBEMAP_FACE_ORDER], dim=-2)
+
+
 def _merge_poles(ctx: RenderContext) -> bool:
+    """Whether both pole composites run as one batch
+    (:func:`_poles_to_side_flow`): both enabled, same strip geometry."""
     cfg = ctx.config
     return bool(cfg.enable_top and cfg.enable_bottom and ctx.top_h == ctx.bottom_h)
 
@@ -504,24 +611,34 @@ def render_frame(
     bottom_image: torch.Tensor | None = None,
     state: dict | None = None,
     use_temporal: bool = False,
+    save_debug: bool = False,
 ):
     """Render one stereo frame (renderStereoPanorama,
     TestRenderStereoPanorama.cpp:716-972).
 
     side_images (N, 4, H, W) RGBA float32 in camera order; top_image /
-    bottom_image (4, H, W); state: the previous frame's temporal state (or
-    {}). Returns (outputs, new_state) with outputs["equirect"] the (3,
-    2*h, w) RGB stereo pair stacked L over R."""
+    bottom_image (4, H, W) (with pole removal, bottom_image is the combined
+    image of ``render.pole``); state: the previous frame's temporal state
+    (or {}). Returns (outputs, new_state) with outputs["equirect"] the (3,
+    2*h, w) RGB stereo pair stacked L over R and, with a cubemap size
+    configured, outputs["cubemap"] (both eyes' face stacks, L over R).
+    ``save_debug`` adds outputs["debug"], the reference's
+    --save_debug_images intermediates (TestRenderStereoPanorama.cpp:177-185,
+    :792-801), and takes the poles one at a time so that each pole's warped
+    layer exists."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = ctx.config
     state = state or {}
     new_state: dict[str, Any] = {}
+    debug: dict[str, Any] = {}
 
     projections = _project_side_cameras(ctx, side_images)
     pano_l, pano_r, ring_state = _render_ring(ctx, projections, state, use_temporal)
-    del projections
     new_state.update(ring_state)
+    if save_debug:
+        debug.update(projections=projections, spherical_l=pano_l, spherical_r=pano_r)
+    del projections
     pano2 = torch.stack([
         _pad_to_height(pano_l, cfg.eqr_height), _pad_to_height(pano_r, cfg.eqr_height)
     ])
@@ -532,13 +649,17 @@ def render_frame(
         top_strip = _prepare_fisheye_strip(
             ctx, "top", ctx.top_h, top_image, cfg.std_alpha_feather_size
         )
+        if save_debug:
+            debug["top_strip"] = top_strip
     if cfg.enable_bottom:
         bottom_strip = _prepare_fisheye_strip(
             ctx, "bottom", ctx.bottom_h, bottom_image,
             cfg.std_alpha_feather_size, alpha_min=True,
         )
+        if save_debug:
+            debug["bottom_strip"] = bottom_strip
 
-    if _merge_poles(ctx):
+    if _merge_poles(ctx) and not save_debug:
         pano2, st = _poles_to_side_flow(
             ctx, pano2, top_strip, bottom_strip, state, use_temporal
         )
@@ -547,6 +668,8 @@ def render_frame(
         if cfg.enable_top:
             warped, st = _pole_to_side_flow(ctx, pano2, top_strip, "top", state, use_temporal)
             new_state.update(st)
+            if save_debug:
+                debug["top_warped"] = warped
             pano2 = flatten_layers_deghost_prefer_base(pano2, warped)
         if cfg.enable_bottom:
             flipped = torch.flip(pano2, dims=(-2, -1))
@@ -554,10 +677,15 @@ def render_frame(
                 ctx, flipped, bottom_strip, "bottom", state, use_temporal
             )
             new_state.update(st)
+            if save_debug:
+                debug["bottom_warped"] = warped
             flipped = flatten_layers_deghost_prefer_base(flipped, warped)
             pano2 = torch.flip(flipped, dims=(-2, -1))
 
-    return _finalize_outputs(ctx, pano2), new_state
+    outputs = _finalize_outputs(ctx, pano2)
+    if save_debug:
+        outputs["debug"] = debug
+    return outputs, new_state
 
 
 def _final_resize_shape(cfg) -> "tuple[int, int] | None":
@@ -572,7 +700,7 @@ def _final_resize_shape(cfg) -> "tuple[int, int] | None":
 
 
 def _finalize_outputs(ctx: RenderContext, pano2):
-    """Sharpen, optional final resize, stereo stack
+    """Sharpen, optional cubemap, optional final resize, stereo stack
     (TestRenderStereoPanorama.cpp:901-961)."""
     cfg = ctx.config
     rgb2 = pano2[:, :3]
@@ -581,10 +709,16 @@ def _finalize_outputs(ctx: RenderContext, pano2):
             rgb2, amount=1.0 + cfg.sharpening, iir_amount=0.25,
             h_boundary="wrap", v_boundary="reflect",
         )
+    outputs = {}
+    if cfg.cubemap_width > 0 and cfg.cubemap_height > 0:
+        outputs["cubemap"] = torch.cat(
+            [_cubemap(ctx, rgb2[0]), _cubemap(ctx, rgb2[1])], dim=-2
+        )
     final = _final_resize_shape(cfg)
     if final is not None:
         rgb2 = resize_cubic(rgb2, final)
-    return {"equirect": torch.cat([rgb2[0], rgb2[1]], dim=-2)}
+    outputs["equirect"] = torch.cat([rgb2[0], rgb2[1]], dim=-2)
+    return outputs
 
 
 def state_from_numpy(state: dict, device) -> dict:
@@ -599,3 +733,32 @@ def state_from_numpy(state: dict, device) -> dict:
 def state_to_numpy(state: dict) -> dict:
     """Temporal state of tensors -> float32 numpy arrays, same keys."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+# prefix of the pole-removal prior's keys in a saved state
+POLE_STATE_PREFIX = "pole:"
+
+
+def state_to_blob(state: dict | None, pole_state: dict | None = None) -> dict:
+    """One frame's saved state, as both packages pickle it: the ring and
+    pole-flow state under its own keys and the pole-removal prior
+    (``pole_flow``, ``prev_bottom``, ``prev_bottom2``) under ``pole:``
+    keys, all float32 numpy arrays."""
+    blob = state_to_numpy(state or {})
+    blob.update({
+        POLE_STATE_PREFIX + k: v for k, v in state_to_numpy(pole_state or {}).items()
+    })
+    return blob
+
+
+def state_from_blob(blob: dict, device) -> "tuple[dict | None, dict]":
+    """A saved state of either package -> (temporal state or None when the
+    blob holds none, pole-removal prior with the prefix stripped), as
+    tensors on ``device``."""
+    n = len(POLE_STATE_PREFIX)
+    pole = {k[n:]: v for k, v in blob.items() if k.startswith(POLE_STATE_PREFIX)}
+    ring = {k: v for k, v in blob.items() if not k.startswith(POLE_STATE_PREFIX)}
+    return (
+        state_from_numpy(ring, device) if ring else None,
+        state_from_numpy(pole, device),
+    )

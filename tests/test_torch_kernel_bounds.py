@@ -192,3 +192,28 @@ def test_flops_per_sample_hand_count():
     assert cs.flops_per_sample("bicubic", 4) == 214
     assert cs.flops_per_sample("bilinear", 2, 9) == 222
     assert cs.flops_per_sample("bilinear", 1) == 18
+
+
+def test_call_bounds_of_a_three_channel_call():
+    """K1 at C = 3 (the cubemap's panorama): the kernel pads its staged
+    pixels to 4 floats, the bound counts the 3 channels that exist. One
+    window over the whole array, two samples with 4 x 4 taps sharing a
+    4 x 2 block, and the grid_sample yardstick on the same call."""
+    g = torch.Generator().manual_seed(0)
+    padded = torch.rand((1, 3, 12, 16), generator=g)
+    sy = torch.zeros((1, 1), dtype=torch.int32)
+    sx = torch.zeros((1, 1), dtype=torch.int32)
+    xt = torch.tensor([[[4.5, 6.5]]])
+    yt = torch.tensor([[[5.25, 5.75]]])
+    kw = dict(bh=12, bw=16, base_bw=None, pad_y=0, pad_x=0, n_y=12, n_x=16,
+              interpolation="bicubic", border="constant")
+    b = cs.call_bounds([padded, sy, sx, xt, yt], kw)
+    touched = 16 + 16 - 8
+    assert b["src_bytes"] == 4 * 3 * touched
+    assert b["window_src_bytes"] == 4 * 3 * 12 * 16
+    assert b["bytes"] == 8 * 2 + 8 * 1 + 4 * 2 * 3 + 4 * 3 * touched == 336
+    assert b["flops"] == 2 * cs.flops_per_sample("bicubic", 3) == 2 * (54 + 3 * 40)
+    call, to_twin = cs.library_call([padded, sy, sx, xt, yt], kw)
+    want = fw.fused_window_sample_reference(padded, sy, sx, xt, yt, **kw)
+    assert want.shape == (1, 1, 3, 2)
+    torch.testing.assert_close(to_twin(call()), want, atol=TOL, rtol=0)

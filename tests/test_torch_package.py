@@ -27,8 +27,21 @@ SLICE_MODULES = [
     "surround360_tpu_torch.flow.pixflow",
     "surround360_tpu_torch.views.novel_view",
     "surround360_tpu_torch.render.panorama",
+    "surround360_tpu_torch.render.pole",
+    "surround360_tpu_torch.render.profiling",
+    "surround360_tpu_torch.native",
+    "surround360_tpu_torch.isp",
+    "surround360_tpu_torch.isp.raw",
+    "surround360_tpu_torch.isp.footage",
+    "surround360_tpu_torch.isp.dng",
+    "surround360_tpu_torch.isp.demosaic",
+    "surround360_tpu_torch.isp.pipeline",
     "surround360_tpu_torch.cli.common",
     "surround360_tpu_torch.cli.render_video",
+    "surround360_tpu_torch.cli.unpack",
+    "surround360_tpu_torch.cli.raw2rgb",
+    "surround360_tpu_torch.cli.dng_helper",
+    "surround360_tpu_torch.cli.run_all",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,12 +56,29 @@ def _run(code: str, env_extra=None):
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port brings in neither jax nor any
+    module of the JAX package, builds nothing (no native library, no
+    kernel), and the list covers every module file of the package."""
+    pkg = os.path.join(REPO, "surround360_tpu_torch")
+    on_disk = set()
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), REPO)[:-3]
+                on_disk.add(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    listed = set(SLICE_MODULES)
+    # sub-packages are imported with their modules
+    assert {m for m in on_disk if m not in listed and not any(
+        l.startswith(m + ".") for l in listed)} == set()
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'surround360_tpu.')) or m == 'surround360_tpu')\n"
+        "m.startswith(('jax.', 'jaxlib', 'surround360_tpu.')) or m == 'surround360_tpu')\n"
         "print('LEAKED', bad)\n"
+        "import surround360_tpu_torch.native as native\n"
+        "import surround360_tpu_torch.ops.fused_window as fw\n"
+        "assert native._lib is None and not fw._LIBS\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _run(code)
@@ -131,6 +161,41 @@ def test_folded_cuda_tensor_without_library_raises(monkeypatch, tmp_path, offset
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fw.fused_window_sample_folded(*fake, **kw, offsets=offsets, **margins)
     assert dict(fw.LAUNCHES) == launches
+
+
+def test_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path):
+    """A launch the kernel refuses (cudaErrorInvalidValue, 1: a window row
+    that a block's shared memory cannot hold) raises from the wrapper:
+    no twin runs in its place and no launch is counted."""
+    import contextlib
+    import types
+
+    _without_toolchain(monkeypatch, tmp_path)
+    seen = []
+
+    def refuse(*args):
+        seen.append(args)
+        return 1  # cudaErrorInvalidValue
+
+    lib = types.SimpleNamespace(s360_fused_window_sample=refuse,
+                                s360_fused_window_folded=refuse)
+    monkeypatch.setattr(fw, "_load_library", lambda kernel=fw.K1: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: real_empty(*a, **k))
+    arrays, kw = _small_inputs()
+    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
+    launches = dict(fw.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
+        fw.fused_window_sample(*fake, **kw, site="wide")
+    folded, fkw = _small_folded_inputs()
+    fake = [a.as_subclass(_FakeCudaTensor) for a in folded]
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
+        fw.fused_window_sample_folded(*fake, **fkw)
+    assert len(seen) == 2 and dict(fw.LAUNCHES) == launches
 
 
 def test_other_devices_raise(monkeypatch):
