@@ -1,12 +1,14 @@
 """Smoke run of surround360_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, 6 to 7 minutes
-    python3 chip_smoke.py --quick    # phases 1-3 and the product path's
-                                     # kernel sites on random inputs, ~40 s
+    python3 chip_smoke.py            # every phase, 7 to 9 minutes
+    python3 chip_smoke.py --quick    # phases 1-3, the probes against their
+                                     # twins and the product path's kernel
+                                     # sites on random inputs, ~40 s
 
 Phases (each prints its lines; any failure exits non-zero before the
-kernels line; a phase-3 failure is printed at once and fails the run
-after phase 13, so that the measurements still print):
+kernels line; a phase-3 or phase-14 mismatch is printed at once and fails
+the run after phase 13, so that the measurements still print). Phases 14
+and 15 run after phase 9, while phase 4's context is alive:
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off (the reference is float32).
@@ -81,8 +83,26 @@ after phase 13, so that the measurements still print):
    --save_debug_images --profile_stages (the debug tree's files, the
    stage table), then run_all.main --steps unpack,render at the preview
    preset on a small footage (256 px cameras): runtimes.txt and frames.
+14. probes: every K4 (kernel_step_cost: dots_x5, tent_plus_dots_x5,
+   tent_dots_roll_x5, lead8_fori, lead8_unrolled, tent_dots_dyn_dma_x5)
+   and K5 (kernel_body_cost: full, no_ohx, no_ohy, no_dot, no_reduce,
+   no_roll, full_dma) variant against its twin at the smaller grid that
+   its probe's main() times (64 steps for K4, 256 for K5; K4 within
+   1e-5 of the output's max |value|, K5 within 2e-5 of max(1, that)); then
+   the two probes' main() as a user runs them (launches counted from 0;
+   every probe site must launch), each variant's us per grid step by the
+   reference's grid contrast, its bound (probe_bound) and share, the twin's
+   us per step and one batched torch.matmul of the variant's own matrices
+   (the yardstick).
+15. harnesses: preset_table at the 6k preset, temporal, 3 chained frames
+   (ms per frame, median, peak memory); preset_quality at 3k, 2 chained
+   frames, >= 40 dB full sphere; profile_stages at its defaults;
+   flow_quality (pixflow_tpu under tests/test_flow_quality.py's
+   thresholds); trace_grid_economics on phase 4's 6k context. Every
+   harness runs through its entry point; any failure row fails the run.
 
-Then the kernels' JSON line, the card's name and power limit, and last
+Then the kernels' JSON line (K1-K3 and the four probe sites), the card's
+name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -130,6 +150,27 @@ SOURCES = {
     "fused_window_folded": "surround360_tpu_torch/csrc/fused_window_folded.cu",
     "fused_window_offsets": "surround360_tpu_torch/csrc/fused_window_folded.cu",
 }
+# the benchmark folder's kernel probes (K4, K5): kernel site -> the TPU
+# kernel it replaces and its source; K4 is held within 1e-5 of the
+# output's max |value|, K5 within 2e-5 of max(1, that)
+PROBE_REPLACES = {
+    "kernel_step_cost_variant": "benchmarks/kernel_step_cost.py:121",
+    "kernel_step_cost_dyn": "benchmarks/kernel_step_cost.py:217",
+    "kernel_step_cost_dma": "benchmarks/kernel_step_cost.py:284",
+    "kernel_body_cost": "benchmarks/kernel_body_cost.py:176",
+}
+PROBE_SOURCES = {
+    site: "surround360_tpu_torch/csrc/" + ("kernel_body_cost.cu" if site == "kernel_body_cost"
+                                           else "kernel_step_cost.cu")
+    for site in PROBE_REPLACES
+}
+K4_REL, K5_REL = 1e-5, 2e-5
+LIBRARY_STEPS = 64  # steps of the batched torch.matmul yardstick
+# pixflow_tpu midpoint RMSE: scene -> (max, improvement over no flow), as
+# tests/test_flow_quality.py holds the JAX package
+FLOW_THRESHOLDS = {"translation": (0.006, 4.0), "rotation": (0.007, 2.0),
+                   "zoom": (0.006, 2.0), "shear": (0.0025, 1.5), "occlusion": (0.022, 1.3)}
+QUALITY_PRESET = "3k"  # phase 15's preset_quality (phases 6 and 9 cover 6k)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_cli")  # gitignored; removed at the end
 
@@ -316,15 +357,16 @@ def phase_device():
 
 
 def phase_build():
+    from surround360_tpu_torch import cuda_build
     from surround360_tpu_torch.ops import fused_window as fw
 
     t0 = time.perf_counter()
-    seconds = fw.build_all()
+    seconds = cuda_build.build_all()
     for kernel in fw.KERNELS:
         fw._load_library(kernel)
     for source, secs in seconds.items():
         log(f"[2 build] {source}: nvcc {secs:.1f} s")
-        for line in fw.ptxas_report(source):
+        for line in cuda_build.ptxas_report(source):
             log(f"[2 build]   ptxas: {line}")
     log(f"[2 build] all sources in {time.perf_counter() - t0:.1f} s (parallel)")
     return seconds
@@ -544,34 +586,11 @@ def phase_small():
 
 
 def _render_inputs(rig, device):
-    import torch
-
+    from surround360_tpu_torch.benchmarks.preset_table import frame_inputs
     from surround360_tpu_torch.capture import render_camera_views
 
     views = render_camera_views(rig)
-    side = np.stack([views[rig.ids.index(s)] for s in rig.side_ids])
-    to_dev = lambda a: torch.from_numpy(a).to(device)
-    inputs = (to_dev(side), to_dev(views[rig.top_camera_index]),
-              to_dev(views[rig.bottom_camera_index]))
-    return inputs, views
-
-
-def _preset_config(preset: str, flow_alg: str = "pixflow_tpu"):
-    from surround360_tpu_torch.cli.render_video import (
-        PRESET_SHARPENING,
-        PRESET_SIDE_FLOW_SCALE,
-        QUALITY_PRESETS,
-    )
-    from surround360_tpu_torch.render.panorama import RenderConfig
-
-    eqr_w, eqr_h, fin_w, fin_h = QUALITY_PRESETS[preset]
-    return RenderConfig(
-        eqr_width=eqr_w, eqr_height=eqr_h, final_eqr_width=fin_w,
-        final_eqr_height=fin_h, sharpening=PRESET_SHARPENING,
-        side_flow_alg=flow_alg, polar_flow_alg=flow_alg,
-        side_flow_scale=PRESET_SIDE_FLOW_SCALE.get(preset, 1.0),
-        enable_top=True, enable_bottom=True,
-    )
+    return frame_inputs(rig, views, device), views
 
 
 def _sync(device):
@@ -587,6 +606,7 @@ def phase_main_path(rig, preset, device):
     times."""
     import torch
 
+    from surround360_tpu_torch.benchmarks.preset_table import preset_config
     from surround360_tpu_torch.ops import fused_window as fw
     from surround360_tpu_torch.render.panorama import (
         build_render_context,
@@ -596,7 +616,7 @@ def phase_main_path(rig, preset, device):
     t0 = time.perf_counter()
     inputs, views = _render_inputs(rig, device)
     t1 = time.perf_counter()
-    ctx = build_render_context(rig, _preset_config(preset))
+    ctx = build_render_context(rig, preset_config(preset))
     log(f"[4 main] simulator views {t1 - t0:.1f} s, build_render_context "
         f"{time.perf_counter() - t1:.1f} s (strip {ctx.strip_h}x"
         f"{ctx.strip_w}, poles {ctx.top_h} rows)")
@@ -1229,6 +1249,263 @@ def phase_debug_profile(rig, root, device_name="cuda", small_scale=0.25):
         f"{FRAMES} frames in {wall:.1f} s; runtimes.txt: {'; '.join(runtimes)}")
 
 
+def _probe_cases(rng, device):
+    """(site, variant, inputs, kernel call, twin, tolerance, scale floor)
+    for every K4 and K5 variant, at the smaller grid of the pair that the
+    probe's main() times."""
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    for name, (site, _) in KS.VARIANTS.items():
+        yield (site, name, KS.make_inputs(rng, name, KS.STEPS[name][0], device),
+               KS.step_cost, KS.step_cost_plain, K4_REL, 0.0)
+    for name in KB.VARIANTS:
+        yield (KB.SITE, name, KB.make_inputs(rng, name, KB.N1, device), KB.body_cost,
+               KB.body_cost_plain, K5_REL, 1.0)
+
+
+def probe_check():
+    """Every K4 / K5 variant, kernel vs twin on the same inputs, before any
+    timing. Returns (worst max-abs per kernel site, the failures)."""
+    import torch
+
+    errs, failed = {}, []
+    for site, name, args, call, twin, rel, floor in _probe_cases(
+            np.random.default_rng(7), torch.device("cuda", 0)):
+        got = call(name, *args)
+        torch.cuda.synchronize()
+        want = twin(name, *args)
+        err = float((got - want).abs().max())
+        scale = max(floor, float(want.abs().max()))
+        bad = not bool(torch.isfinite(got).all()) or err > rel * scale
+        errs[site] = max(errs.get(site, 0.0), err)
+        if bad:
+            failed.append(f"{site} {name} vs twin: max-abs {err} > {rel:g} x {scale:.4g}")
+        log(f"[14 probes] {name} ({site}) vs twin, {args[0].shape[0]} steps: max-abs "
+            f"{err:.3g} (<= {rel:g} x {scale:.4g})" + (" FAILED" if bad else ""))
+    return errs, failed
+
+
+def probe_bound(site, name) -> dict:
+    """One step's least time on an H100: the larger of its float
+    operations over 67 TFLOP/s (the products, 2 per multiply-add, and K5's
+    channel reduction; the tent and stub builds are not counted) and its
+    bytes over 3.35 TB/s (the coordinates that feed an output, the outputs,
+    and the window rows a step copies (the dma variants); a window that
+    every step shares is read once a grid and left out)."""
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    if site == KB.SITE:
+        t = KB.VARIANTS[name]
+        flops = ((2 * KB.PG * KB.BWB * KB.C * KB.BH if t["dot"] else 0)
+                 + (2 * KB.PG * KB.C * KB.BH if t["reduce"] else 0))
+        nbytes = (2 * KB.PG * 4 + 4 + KB.C * KB.PG * 4
+                  + (KB.C * KB.BH * KB.BWB * 4 if t["dma"] and t["dot"] else 0))
+    else:
+        body = KS.VARIANTS[name][1]
+        J = KS.out_rows(name)
+        flops = J * 2 * KS.PG * KS.BW * KS.BH
+        coords = 4 if body == "dots" else (J if site == KS.SITE_DYN else 1) * KS.PG * 4
+        nbytes = coords + J * KS.PG * 4 + (KS.BH * KS.BW * 4 if site == KS.SITE_DMA else 0)
+    flops_us, bytes_us = flops / F32_FLOPS_PER_S * 1e6, nbytes / HBM_BYTES_PER_S * 1e6
+    return dict(flops=flops, bytes=nbytes, flops_us=flops_us, bytes_us=bytes_us,
+                bound_us=max(flops_us, bytes_us),
+                bound_by="operations" if flops_us >= bytes_us else "bytes")
+
+
+def probe_library(site, name, args):
+    """The yardstick: one batched torch.matmul (TF32 off) of the variant's
+    own matrices over the steps of ``args``, built outside the timed
+    region; None for K5's no_dot (no product)."""
+    import torch
+
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+    from surround360_tpu_torch.benchmarks.probe_common import tent
+
+    if site == KB.SITE:
+        t = KB.VARIANTS[name]
+        if not t["dot"]:
+            return None
+        shifts, xs, ys, win = args
+        n, dev = xs.shape[0], xs.device
+        x = xs[:, 0, :, None]
+        ohx = (tent(x - torch.arange(KB.BWB, dtype=torch.float32, device=dev)) if t["ohx"]
+               else (x * 1e-3).expand(n, KB.PG, KB.BWB)).contiguous()
+        rows = torch.arange(KB.C * KB.BH, device=dev)[None]
+        if t["dma"]:
+            rows = rows + (torch.arange(n, device=dev) % 8 * 8)[:, None]
+        shift = shifts.long() if t["roll"] else torch.zeros_like(shifts, dtype=torch.long)
+        cols = torch.remainder(torch.arange(KB.BWB, device=dev)[None] - shift[:, None], KB.BW)
+        wmt = win[rows[:, :, None], cols[:, None, :]].transpose(1, 2).contiguous()
+        return lambda: torch.bmm(ohx, wmt)
+    x, win, big = args
+    n, dev = x.shape[0], x.device
+    body = KS.VARIANTS[name][1]
+    J = KS.out_rows(name)
+    k = torch.arange(KS.BW, dtype=torch.float32, device=dev)
+    if body == "dots":
+        oh = (k * (x[:, 0, 0] * 1e-6)[:, None])[:, None, None, :]
+        a = (oh + torch.arange(J, device=dev)[None, :, None, None]).expand(n, J, KS.PG, KS.BW)
+    elif site == KS.SITE_DYN:
+        a = tent(x[:, :, :, None] - k)
+    else:
+        a = tent(x[:, :1, :, None] - k).expand(n, J, KS.PG, KS.BW)
+    if site == KS.SITE_DMA:
+        rows = KS._dma_rows(x[:, 0, 0])[:, None] + torch.arange(KS.BH, device=dev)
+        w = big[0][rows][:, None]  # (n, 1, BH, BW)
+    elif body == "roll":
+        w = torch.stack([torch.roll(win[0], o, dims=-1) for o in range(J)])[None]
+    else:
+        w = win[0][None, None]
+    a = a.reshape(n * J, KS.PG, KS.BW).contiguous()
+    bt = w.transpose(-1, -2).expand(n, J, KS.BW, KS.BH).reshape(n * J, KS.BW, KS.BH).contiguous()
+    return lambda: torch.bmm(a, bt)
+
+
+def phase_probes():
+    """K4 and K5 as a user runs them (the two probes' main(), launches
+    counted from 0), then per variant the twin's and the yardstick's us per
+    step beside the bound. Returns (launches per site, the variants' rows)."""
+    import torch
+
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+    from surround360_tpu_torch.benchmarks import probe_common as pc
+
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = {**KS.main([]), **KB.main([])}
+    wall = time.perf_counter() - t0
+    launches = {site: pc.launch_count(site) for site in PROBE_REPLACES}
+    per_variant = {name: pc.launch_count(None, name) for name in res}
+    log(f"[14 probes] kernel_step_cost.main and kernel_body_cost.main in {wall:.1f} s: "
+        f"launches {launches}")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(8)
+    rows = []
+    for name, r in res.items():
+        mod, site, twin = ((KS, KS.VARIANTS[name][0], KS.step_cost_plain)
+                           if name in KS.VARIANTS else (KB, KB.SITE, KB.body_cost_plain))
+        make = lambda n, mod=mod, name=name, twin=twin: (
+            lambda a=mod.make_inputs(rng, name, n, dev): twin(name, *a))
+        plain_us = pc.per_step_us(make, 8, 32, 2)[0]
+        lib = probe_library(site, name, mod.make_inputs(rng, name, LIBRARY_STEPS, dev))
+        library_us = cuda_ms(lib) / LIBRARY_STEPS * 1e3 if lib else None
+        del lib
+        row = dict(site=site, variant=name, us=r["us_per_step"], t1_ms=r["t1_ms"],
+                   t2_ms=r["t2_ms"], steps=list(r["steps"]), launches=per_variant[name],
+                   plain_us=plain_us, library_us=library_us, **probe_bound(site, name))
+        rows.append(row)
+        lib_s = f"{library_us:.3f}" if library_us is not None else "none"
+        log(f"[14 probes] {name} ({site}): {row['us']:.3f} us/step (grid {row['steps'][0]} "
+            f"/ {row['steps'][1]}: {row['t1_ms']:.3f} / {row['t2_ms']:.3f} ms), bound "
+            f"{row['bound_us']:.4f} us by {row['bound_by']} ({row['flops'] / 1e6:.1f} MFLOP, "
+            f"{row['bytes'] / 1e3:.1f} KB), {row['bound_us'] / row['us']:.0%} of bound; twin "
+            f"{plain_us:.2f} us/step; torch.matmul {lib_s} us/step; {row['launches']} launches")
+    return launches, rows
+
+
+def _probe_entry(site, launches, err, rows, nvcc_s):
+    """One probe kernel site of the kernels line: per-step ms summed over
+    its variants (each listed with its own numbers); library_ms over the
+    variants that have a product."""
+    vs = [r for r in rows if r["site"] == site]
+    total = lambda k: sum(r[k] for r in vs) / 1e3
+    lib = [r["library_us"] for r in vs if r["library_us"] is not None]
+    return {
+        "name": site,
+        "route": "cuda",
+        "source": PROBE_SOURCES[site],
+        "replaces": PROBE_REPLACES[site],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": total("us"),
+        "plain_ms": total("plain_us"),
+        "bound_ms": total("bound_us"),
+        "bound_by": "operations" if total("flops_us") >= total("bytes_us") else "bytes",
+        "library_ms": sum(lib) / 1e3 if lib else None,
+        "nvcc_s": nvcc_s[os.path.basename(PROBE_SOURCES[site])],
+        "per": "grid step",
+        "variants": vs,
+    }
+
+
+def _counted(fn):
+    """fn() with the fused window kernels' launches counted from 0: returns
+    (its result, launches per kernel, seconds)."""
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    fw.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, {k: fw.launch_count(k) for k in fw.KERNELS}, time.perf_counter() - t0
+
+
+def phase_harnesses(rig, views, ctx, inputs, device, preset=PRESET,
+                    quality_preset=QUALITY_PRESET):
+    """The benchmark folder's harnesses as users run them: preset_table at
+    ``preset``, temporal, 3 chained frames (phase 4's context); preset_quality
+    at ``quality_preset`` (2 chained frames, >= 40 dB full sphere);
+    profile_stages at its defaults; flow_quality (pixflow_tpu under the JAX
+    package's thresholds); trace_grid_economics on phase 4's context and
+    inputs. Returns the preset_table row."""
+    from surround360_tpu_torch.benchmarks import (
+        flow_quality,
+        preset_quality,
+        preset_table,
+        profile_stages,
+        trace_grid_economics,
+    )
+    from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.render.profiling import STAGES
+
+    cuda = device.type == "cuda"
+    rows, launches, secs = _counted(lambda: preset_table.run(
+        device, [preset], reps=3, temporal=True, rig=rig, views=views,
+        contexts={preset: ctx}))
+    (row,) = rows
+    if "error" in row or (cuda and not launches[fw.K1]):
+        raise AssertionError(f"preset_table: {row}, launches {launches}")
+    log(f"[15 harnesses] preset_table {preset} temporal ({secs:.1f} s): "
+        f"{json.dumps(row)}, launches {launches}")
+
+    (qrow,), launches, secs = _counted(lambda: preset_quality.run(
+        device, [quality_preset], n_chain=2, rig=rig, views=views))
+    if "error" in qrow or min(qrow["psnr_full_L"], qrow["psnr_full_R"]) < PSNR_MIN:
+        raise AssertionError(f"preset_quality: {qrow}")
+    log(f"[15 harnesses] preset_quality {quality_preset}, 2 chained frames ({secs:.1f} s): "
+        f"{json.dumps(qrow)} (full sphere >= {PSNR_MIN} dB), launches {launches}")
+
+    (times, _), launches, secs = _counted(
+        lambda: profile_stages.run(device, **profile_stages.settings()))
+    if not set(STAGES) <= set(times):
+        raise AssertionError(f"profile_stages lacks {set(STAGES) - set(times)}")
+    log(f"[15 harnesses] profile_stages at its defaults ({secs:.1f} s): full_frame "
+        f"{times['full_frame'] * 1e3:.1f} ms, launches {launches}")
+
+    frows, _, secs = _counted(lambda: flow_quality.run(device))
+    for scene, base, r_low, r_tpu in frows:
+        max_abs, factor = FLOW_THRESHOLDS[scene]
+        if not (r_tpu < max_abs and r_tpu < base / factor):
+            raise AssertionError(f"flow_quality {scene}: {r_tpu} (no flow {base})")
+    log(f"[15 harnesses] flow_quality ({secs:.1f} s): pixflow_tpu RMSE " + ", ".join(
+        f"{s} {t:.4f}" for s, _, _, t in frows) + " (under the JAX package's thresholds)")
+
+    trows, launches, secs = _counted(
+        lambda: trace_grid_economics.run(device, ctx=ctx, inputs=inputs))
+    found = {r["site"] for r in trows if r["kernel"] == fw.K1}
+    if not set(K1_SITES) <= found:
+        raise AssertionError(f"trace_grid_economics lacks {set(K1_SITES) - found}")
+    log(f"[15 harnesses] trace_grid_economics {ctx.config.eqr_width}x"
+        f"{ctx.config.eqr_height}/eye ({secs:.1f} s): {len(trows)} (kernel, site, "
+        f"offsets) lines, launches {launches}")
+    return row
+
+
 def _kernel_entry(name, launches, small_err, sites, nvcc_s):
     """One kernel of the kernels line: times summed over its recorded
     calls (``sites``), each of which is listed with its own numbers."""
@@ -1276,8 +1553,9 @@ def quick():
     smi = phase_device()
     phase_build()
     _, failed = phase_small()
+    failed += probe_check()[1]
     if failed:
-        raise AssertionError(f"phase 3 failed: {failed}")
+        raise AssertionError(f"phase 3 or the probes failed: {failed}")
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
@@ -1361,7 +1639,11 @@ def main():
     k3, k2 = phase_flow_sites(record, device)
     del record
     phase_quality(ctx, inputs, device, "pixflow_tpu_offsets", "9 quality", expect)
-    del ctx, inputs, expect
+    del expect
+    probe_err, probe_failed = probe_check()
+    probe_launches, probe_rows = phase_probes()
+    phase_harnesses(rig, views, ctx, inputs, device)
+    del ctx, inputs
     torch.cuda.empty_cache()
     root, painted = phase_unpack(rig, views)
     product_launches, record = phase_product_cli(rig, root, painted, views)
@@ -1370,8 +1652,8 @@ def main():
     del record
     phase_debug_profile(rig, root)
     shutil.rmtree(WORK, ignore_errors=True)
-    if small_failed:
-        raise AssertionError(f"phase 3 failed: {small_failed}")
+    if small_failed or probe_failed:
+        raise AssertionError(f"phase 3 or 14 failed: {small_failed + probe_failed}")
     # ms, cold_ms, plain_ms, library_ms, bound_ms: summed over the recorded
     # calls (K1: the largest per call site, phases 5 and 12; K3: the largest
     # per flow site and offset set, phases 8 and 12; K2: its forced call in
@@ -1386,6 +1668,11 @@ def main():
         for name, sites in (("fused_window_sample", k1 + k1_new),
                             ("fused_window_folded", [k2]),
                             ("fused_window_offsets", k3 + k3_new))
+    ] + [
+        # ms, plain_ms, bound_ms, library_ms: per grid step, summed over the
+        # site's variants (phase 14); launches: the probes' main() run
+        _probe_entry(site, probe_launches[site], probe_err[site], probe_rows, nvcc_s)
+        for site in PROBE_REPLACES
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

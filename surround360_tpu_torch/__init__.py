@@ -17,6 +17,9 @@ to PyTorch on an NVIDIA Hopper GPU. The sub-packages mirror the reference:
 - ``capture``   — the capture simulator (inputs and analytic truth).
 - ``cli``       — ``run_all`` (unpack -> render -> encode), ``unpack``,
                   ``raw2rgb``, the video renderer ``render_video``, PNG io.
+- ``benchmarks`` — the kernel probes (their CUDA kernels in ``csrc/``) and
+                  the preset, profile, flow-quality and grid harnesses.
+- ``cuda_build`` — nvcc of every ``csrc/*.cu`` at first use.
 
 Device tensors are ``torch.Tensor`` on the device of their inputs; host
 geometry stays float64 numpy. The package never imports ``jax``.

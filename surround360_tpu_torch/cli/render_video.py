@@ -35,9 +35,9 @@ when there is none; ``--device cpu`` renders on the CPU. A
 id>.png``, ``spherical_l|r``, the poles' ``*_strip`` and per-eye
 ``*_warped_left|right``) and runs the loop synchronously, the poles one at
 a time. ``--profile_stages`` logs the per-stage time table of
-``render.profiling`` on the first frame's inputs before rendering. The
-reference's jitted and staged renderer has no counterpart: every frame
-renders eagerly.
+``render.profiling`` on the first frame's inputs before rendering. Every
+frame renders eagerly through ``render_frame``, where the reference jits
+and stages its renderer.
 """
 
 from __future__ import annotations

@@ -26,22 +26,19 @@ fallback from one to the other.
 ``LAUNCHES`` counts kernel launches by (kernel, site), where kernel is one
 of :data:`KERNELS` and site is the caller's label, so a run can show which
 call sites went through which kernel. ``RECORD``, when set to a dict,
-keeps per (kernel, site, offsets) the inputs and output of the launch with
-the most samples and the number of launches, for later comparison with the
-twin.
+keeps per (kernel, site, offsets) the inputs and output of the call with
+the most samples and the number of calls (launches on the card, twin calls
+on the CPU), for later comparison with the twin.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from .. import cuda_build
 
 __all__ = [
     "KERNELS",
@@ -54,10 +51,6 @@ __all__ = [
     "reset_launch_counts",
     "LAUNCHES",
 ]
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 # kernel name -> CUDA source under csrc/ (K2 and K3 share one source)
 K1, K2, K3 = "fused_window_sample", "fused_window_folded", "fused_window_offsets"
@@ -83,87 +76,12 @@ def launch_count(kernel: str | None = None, site: str | None = None) -> int:
     )
 
 
-def _find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the fused window kernels are built "
-        "from surround360_tpu_torch/csrc/ at first use"
-    )
-
-
-def _so_path(source: str) -> str:
-    """``_build/lib<stem>_<hash>.so``, keyed by the source and the shared
-    headers (``csrc/*.cuh``) it may include."""
-    digest = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(_CSRC_DIR) if f.endswith(".cuh"))
-    for name in [source] + headers:
-        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
-            digest.update(f.read())
-    stem = os.path.splitext(source)[0]
-    return os.path.join(_BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
-
-
-def _build(source: str) -> str:
-    """nvcc ``csrc/<source>`` into ``_build/`` (once per hash); returns the
-    shared library's path. ptxas's report (registers, shared memory,
-    spills per kernel) is kept beside it, see :func:`ptxas_report`."""
-    so_path = _so_path(source)
-    if os.path.exists(so_path):
-        return so_path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [
-        _find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, os.path.join(_CSRC_DIR, source),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc {source} failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    with open(f"{so_path}.ptxas.txt", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, so_path)
-    return so_path
-
-
-def ptxas_report(source: str) -> list[str]:
-    """ptxas's per-kernel lines (registers, shared memory, spill stores)
-    from the build of ``source``; empty before it is built."""
-    try:
-        with open(f"{_so_path(source)}.ptxas.txt") as f:
-            lines = f.read().splitlines()
-    except FileNotFoundError:
-        return []
-    keep = ("Compiling entry", "registers", "spill")
-    return [ln.split("ptxas info    : ")[-1] for ln in lines if any(k in ln for k in keep)]
-
-
-def build_all() -> dict[str, float]:
-    """Build every kernel source, one nvcc process each, all started
-    together; returns source -> nvcc seconds (near 0 for a cached build)."""
-    import concurrent.futures
-
-    def timed(source):
-        t0 = time.perf_counter()
-        _build(source)
-        return time.perf_counter() - t0
-
-    sources = sorted(set(_SOURCES.values()))
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        return dict(zip(sources, pool.map(timed, sources)))
-
-
 def _load_library(kernel: str = K1):
     """Build (once per source hash) and load ``kernel``'s shared library."""
     source = _SOURCES[kernel]
     if source in _LIBS:
         return _LIBS[source]
-    lib = ctypes.CDLL(_build(source))
+    lib = ctypes.CDLL(cuda_build.build(source))
     vp, i = ctypes.c_void_p, ctypes.c_int
     if source == _SOURCES[K1]:
         fn = lib.s360_fused_window_sample
@@ -330,7 +248,9 @@ def fused_window_sample(
         interpolation=interpolation, border=border, base_bw=base_bw,
     )
     if padded.device.type == "cpu":
-        return fused_window_sample_reference(padded, sy, sx, xt, yt, **kw)
+        out = fused_window_sample_reference(padded, sy, sx, xt, yt, **kw)
+        _record(K1, site, [padded, sy, sx, xt, yt], kw, out)
+        return out
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
     _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "TL")
@@ -419,7 +339,9 @@ def fused_window_sample_folded(
         base_bw=base_bw, off_my=off_my, off_mx=off_mx,
     )
     if padded.device.type == "cpu":
-        return fused_window_sample_folded_reference(padded, sy, sx, xt, yt, **kw)
+        out = fused_window_sample_folded_reference(padded, sy, sx, xt, yt, **kw)
+        _record(K2 if offsets is None else K3, site, [padded, sy, sx, xt, yt], kw, out)
+        return out
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
     _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "T")

@@ -21,8 +21,10 @@ state from either package can drive the next frame of the other.
 Call :func:`render_frame` with float32 tensors; it turns TF32 off, since
 the reference it is held against computes in float32. With pole removal
 the caller combines the two bottom cameras first (``render.pole``) and
-passes the result as ``bottom_image``. The reference's jitted and staged
-renderer has no counterpart: the port renders eagerly.
+passes the result as ``bottom_image``. The port renders eagerly:
+:func:`make_jitted_renderer` keeps the signature of the reference's jitted
+and staged renderer as a plain wrapper over :func:`render_frame`, and
+compiles nothing.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ __all__ = [
     "RenderContext",
     "build_render_context",
     "render_frame",
+    "make_jitted_renderer",
     "state_from_numpy",
     "state_to_numpy",
     "state_to_blob",
@@ -686,6 +689,25 @@ def render_frame(
     if save_debug:
         outputs["debug"] = debug
     return outputs, new_state
+
+
+def make_jitted_renderer(
+    ctx: RenderContext, use_temporal: bool = False, staged: bool | None = None
+):
+    """f(side, top, bottom, state) -> (outputs, new_state) over
+    :func:`render_frame` with ``use_temporal`` fixed: the reference's
+    signature (``surround360_tpu/render/panorama.py::make_jitted_renderer``),
+    so that callers written against it run unchanged. Nothing is compiled:
+    the frame runs eagerly on the device of its inputs. ``staged`` selects
+    an XLA compile schedule in the reference; it is accepted and has no
+    effect here."""
+    del staged
+
+    def render(side, top, bottom, state):
+        return render_frame(ctx, side, top, bottom, state=state,
+                            use_temporal=use_temporal)
+
+    return render
 
 
 def _final_resize_shape(cfg) -> "tuple[int, int] | None":

@@ -13,6 +13,7 @@ from surround360_tpu_torch.ops import fused_window as fw
 
 SLICE_MODULES = [
     "surround360_tpu_torch",
+    "surround360_tpu_torch.cuda_build",
     "surround360_tpu_torch.utils.math_util",
     "surround360_tpu_torch.geometry.camera",
     "surround360_tpu_torch.geometry.rig",
@@ -42,6 +43,15 @@ SLICE_MODULES = [
     "surround360_tpu_torch.cli.raw2rgb",
     "surround360_tpu_torch.cli.dng_helper",
     "surround360_tpu_torch.cli.run_all",
+    "surround360_tpu_torch.benchmarks",
+    "surround360_tpu_torch.benchmarks.probe_common",
+    "surround360_tpu_torch.benchmarks.kernel_step_cost",
+    "surround360_tpu_torch.benchmarks.kernel_body_cost",
+    "surround360_tpu_torch.benchmarks.profile_stages",
+    "surround360_tpu_torch.benchmarks.preset_table",
+    "surround360_tpu_torch.benchmarks.preset_quality",
+    "surround360_tpu_torch.benchmarks.flow_quality",
+    "surround360_tpu_torch.benchmarks.trace_grid_economics",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,8 +66,8 @@ def _run(code: str, env_extra=None):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port brings in neither jax nor any
-    module of the JAX package, builds nothing (no native library, no
+    """Importing every module of the port brings in neither jax, cv2, nor
+    any module of the JAX package or its benchmark folder, builds nothing (no native library, no
     kernel), and the list covers every module file of the package."""
     pkg = os.path.join(REPO, "surround360_tpu_torch")
     on_disk = set()
@@ -73,12 +83,14 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib', 'surround360_tpu.')) or m == 'surround360_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'cv2', 'benchmarks') or "
+        "m.startswith(('jax.', 'jaxlib', 'cv2.', 'benchmarks.', 'surround360_tpu.')) "
+        "or m == 'surround360_tpu')\n"
         "print('LEAKED', bad)\n"
         "import surround360_tpu_torch.native as native\n"
         "import surround360_tpu_torch.ops.fused_window as fw\n"
-        "assert native._lib is None and not fw._LIBS\n"
+        "import surround360_tpu_torch.benchmarks.probe_common as pc\n"
+        "assert native._lib is None and not fw._LIBS and not pc._LIBS\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _run(code)
@@ -125,8 +137,10 @@ def _small_folded_inputs():
 
 
 def _without_toolchain(monkeypatch, tmp_path):
+    from surround360_tpu_torch import cuda_build
+
     monkeypatch.setattr(fw, "_LIBS", {})
-    monkeypatch.setattr(fw, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
 
@@ -326,3 +340,131 @@ def test_folded_kernels_match_twin_on_gpu():
         want = fw.fused_window_sample_folded_reference(*dev, **kw)
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= 2e-5, kw
+
+
+def _probe_calls():
+    """One call of each probe kernel site (K4's three, K5) on small CPU
+    inputs: (site, wrapper, arguments)."""
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    rng = np.random.default_rng(0)
+    for name in ("dots_x5", "lead8_unrolled", "tent_dots_dyn_dma_x5"):
+        yield KS.VARIANTS[name][0], lambda *a, name=name: KS.step_cost(name, *a), \
+            KS.make_inputs(rng, name, 2, "cpu")
+    yield KB.SITE, lambda *a: KB.body_cost("full_dma", *a), \
+        KB.make_inputs(rng, "full_dma", 2, "cpu")
+
+
+def _probes_without_toolchain(monkeypatch, tmp_path):
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+    from surround360_tpu_torch.benchmarks import probe_common as pc
+
+    _without_toolchain(monkeypatch, tmp_path)
+    monkeypatch.setattr(pc, "_LIBS", {})
+
+    def no_twin(*a, **k):
+        raise AssertionError("fell back to the plain twin")
+
+    for mod, names in ((KS, ("step_cost_plain", "_plain_chunk")),
+                       (KB, ("body_cost_plain", "_plain_chunk"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, no_twin)
+    return pc
+
+
+def _fake_cuda(args):
+    return [None if a is None else a.as_subclass(_FakeCudaTensor) for a in args]
+
+
+def test_probe_wrappers_raise_without_library(monkeypatch, tmp_path):
+    """K4 and K5 on a CUDA tensor without nvcc or a built library: the
+    wrapper raises and the twin never runs; no launch is counted."""
+    pc = _probes_without_toolchain(monkeypatch, tmp_path)
+    launches = dict(pc.LAUNCHES)
+    sites = []
+    for site, call, args in _probe_calls():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call(*_fake_cuda(args))
+        sites.append(site)
+    assert len(set(sites)) == 4 and dict(pc.LAUNCHES) == launches
+
+
+def test_probe_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path):
+    """A launch the card refuses raises from each probe wrapper; no twin
+    runs in its place and no launch is counted."""
+    import contextlib
+    import types
+
+    pc = _probes_without_toolchain(monkeypatch, tmp_path)
+    seen = []
+
+    def refuse(*args):
+        seen.append(args)
+        return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(pc, "load_library", lambda *a: refuse)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: real_empty(*a, **k))
+    launches = dict(pc.LAUNCHES)
+    for _, call, args in _probe_calls():
+        with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
+            call(*_fake_cuda(args))
+    assert len(seen) == 4 and dict(pc.LAUNCHES) == launches
+
+
+def test_probe_wrappers_raise_on_other_devices():
+    for _, call, args in _probe_calls():
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(*[None if a is None else a.to("meta") for a in args])
+
+
+def _gpu_probes():
+    """The probe modules on the card, TF32 off (their twins take
+    torch.matmul); skips without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    return torch.device("cuda", 0), KS, KB
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["kernel_step_cost_variant", "kernel_step_cost_dyn",
+                                  "kernel_step_cost_dma"])
+def test_step_cost_kernel_matches_twin_on_gpu(site):
+    """K4 at each of its three sites against the twin on the card: within
+    1e-5 of the output's max |value| (float32 sums in another order)."""
+    dev, KS, _ = _gpu_probes()
+    rng = np.random.default_rng(4)
+    for name, (s, _) in KS.VARIANTS.items():
+        if s != site:
+            continue
+        args = KS.make_inputs(rng, name, 5, dev)
+        got = KS.step_cost(name, *args)
+        torch.cuda.synchronize()
+        want = KS.step_cost_plain(name, *args)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+def test_body_cost_kernel_matches_twin_on_gpu():
+    """K5, every variant, against the twin on the card: within 2e-5 of
+    max(1, the output's max |value|)."""
+    dev, _, KB = _gpu_probes()
+    rng = np.random.default_rng(5)
+    for name in KB.VARIANTS:
+        args = KB.make_inputs(rng, name, 9, dev)
+        got = KB.body_cost(name, *args)
+        torch.cuda.synchronize()
+        want = KB.body_cost_plain(name, *args)
+        err = float((got - want).abs().max())
+        assert err <= 2e-5 * max(1.0, float(want.abs().max())), (name, err)
