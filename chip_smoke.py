@@ -91,9 +91,13 @@ and 15 run after phase 9, while phase 4's context is alive:
    1e-5 of the output's max |value|, K5 within 2e-5 of max(1, that)); then
    the two probes' main() as a user runs them (launches counted from 0;
    every probe site must launch), each variant's us per grid step by the
-   reference's grid contrast, its bound (probe_bound) and share, the twin's
+   reference's grid contrast, its bound (probe_bound: the products at the
+   tensor-core rate of their precision, K4 3xTF32, K5 3-pass bf16) and
+   share, the SIMT bound (every FLOP at 67 TFLOP/s) and share, the twin's
    us per step and one batched torch.matmul of the variant's own matrices
-   (the yardstick).
+   (the yardstick). Before the check against the twins, each probe
+   kernel's registers and spills (ptxas) and its HMMA instructions
+   (cuobjdump -sass); a kernel with a product and no HMMA fails the run.
 15. harnesses: preset_table at the 6k preset, temporal, 3 chained frames
    (ms per frame, median, peak memory); preset_quality at 3k, 2 chained
    frames, >= 40 dB full sphere; profile_stages at its defaults;
@@ -123,6 +127,8 @@ import numpy as np
 TOL = 2e-5  # kernel vs twin: same f32 tap math, FMA contraction differs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
 FLUSH_BYTES = 128 * 2**20  # written before a cold call: > the 50 MB L2
 SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of timed calls
 FRAMES = 2  # frames of each product path (phase 4 and phase 7)
@@ -1264,12 +1270,34 @@ def _probe_cases(rng, device):
                KB.body_cost_plain, K5_REL, 1.0)
 
 
+def probe_tensor_cores():
+    """Per kernel of the two probe sources: ptxas's registers and spills
+    and the HMMA (tensor-core) instructions of its SASS. Returns the
+    failures: a kernel with a product (all but K5's no_dot kernel) and no
+    HMMA."""
+    from surround360_tpu_torch import cuda_build
+
+    failed = []
+    for source in sorted({os.path.basename(p) for p in PROBE_SOURCES.values()}):
+        res = cuda_build.kernel_resources(source)
+        for name, hmma in cuda_build.hmma_counts(source).items():
+            r = res.get(name, {})
+            bad = hmma == 0 and "nodot" not in name
+            log(f"[14 probes] {source} {name}: {r.get('registers')} registers, spill "
+                f"stores / loads {r.get('spill_stores')} / {r.get('spill_loads')} bytes, "
+                f"HMMA {hmma}" + (" FAILED: no tensor-core instruction" if bad else ""))
+            if bad:
+                failed.append(f"{source} {name}: no HMMA")
+    return failed
+
+
 def probe_check():
     """Every K4 / K5 variant, kernel vs twin on the same inputs, before any
-    timing. Returns (worst max-abs per kernel site, the failures)."""
+    timing, after the kernels' tensor-core check. Returns (worst max-abs
+    per kernel site, the failures)."""
     import torch
 
-    errs, failed = {}, []
+    errs, failed = {}, probe_tensor_cores()
     for site, name, args, call, twin, rel, floor in _probe_cases(
             np.random.default_rng(7), torch.device("cuda", 0)):
         got = call(name, *args)
@@ -1287,31 +1315,40 @@ def probe_check():
 
 
 def probe_bound(site, name) -> dict:
-    """One step's least time on an H100: the larger of its float
-    operations over 67 TFLOP/s (the products, 2 per multiply-add, and K5's
-    channel reduction; the tent and stub builds are not counted) and its
-    bytes over 3.35 TB/s (the coordinates that feed an output, the outputs,
-    and the window rows a step copies (the dma variants); a window that
-    every step shares is read once a grid and left out)."""
+    """One step's least time on an H100: the larger of its operations at
+    the rate of the precision they are held to and its bytes over 3.35
+    TB/s. The products (2 FLOPs per multiply-add) run on the tensor cores
+    in three passes: K4's float32 as 3xTF32 at 495 TFLOP/s, K5's ``dot3``
+    as 3 bf16 passes at 989 TFLOP/s; K5's channel reduction runs at 67
+    TFLOP/s; the tent and stub builds are not counted. Bytes: the
+    coordinates that feed an output, the outputs, and the window rows a
+    step copies (the dma variants); a window that every step shares is read
+    once a grid and left out. ``simt_bound_us`` beside it is the same count
+    with every FLOP at 67 TFLOP/s, float32 outside the tensor cores."""
     from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
     from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
 
     if site == KB.SITE:
         t = KB.VARIANTS[name]
-        flops = ((2 * KB.PG * KB.BWB * KB.C * KB.BH if t["dot"] else 0)
-                 + (2 * KB.PG * KB.C * KB.BH if t["reduce"] else 0))
+        product = 2 * KB.PG * KB.BWB * KB.C * KB.BH if t["dot"] else 0
+        other = 2 * KB.PG * KB.C * KB.BH if t["reduce"] else 0
+        tc_us = 3 * product / BF16_FLOPS_PER_S * 1e6
         nbytes = (2 * KB.PG * 4 + 4 + KB.C * KB.PG * 4
                   + (KB.C * KB.BH * KB.BWB * 4 if t["dma"] and t["dot"] else 0))
     else:
         body = KS.VARIANTS[name][1]
         J = KS.out_rows(name)
-        flops = J * 2 * KS.PG * KS.BW * KS.BH
+        product, other = J * 2 * KS.PG * KS.BW * KS.BH, 0
+        tc_us = 3 * product / TF32_FLOPS_PER_S * 1e6
         coords = 4 if body == "dots" else (J if site == KS.SITE_DYN else 1) * KS.PG * 4
         nbytes = coords + J * KS.PG * 4 + (KS.BH * KS.BW * 4 if site == KS.SITE_DMA else 0)
-    flops_us, bytes_us = flops / F32_FLOPS_PER_S * 1e6, nbytes / HBM_BYTES_PER_S * 1e6
-    return dict(flops=flops, bytes=nbytes, flops_us=flops_us, bytes_us=bytes_us,
-                bound_us=max(flops_us, bytes_us),
-                bound_by="operations" if flops_us >= bytes_us else "bytes")
+    flops = product + other
+    flops_us = tc_us + other / F32_FLOPS_PER_S * 1e6
+    simt_us, bytes_us = flops / F32_FLOPS_PER_S * 1e6, nbytes / HBM_BYTES_PER_S * 1e6
+    return dict(flops=flops, tc_flops=3 * product, bytes=nbytes, flops_us=flops_us,
+                bytes_us=bytes_us, bound_us=max(flops_us, bytes_us),
+                bound_by="operations" if flops_us >= bytes_us else "bytes",
+                simt_bound_us=max(simt_us, bytes_us))
 
 
 def probe_library(site, name, args):
@@ -1403,9 +1440,15 @@ def phase_probes():
         lib_s = f"{library_us:.3f}" if library_us is not None else "none"
         log(f"[14 probes] {name} ({site}): {row['us']:.3f} us/step (grid {row['steps'][0]} "
             f"/ {row['steps'][1]}: {row['t1_ms']:.3f} / {row['t2_ms']:.3f} ms), bound "
-            f"{row['bound_us']:.4f} us by {row['bound_by']} ({row['flops'] / 1e6:.1f} MFLOP, "
-            f"{row['bytes'] / 1e3:.1f} KB), {row['bound_us'] / row['us']:.0%} of bound; twin "
-            f"{plain_us:.2f} us/step; torch.matmul {lib_s} us/step; {row['launches']} launches")
+            f"{row['bound_us']:.4f} us by {row['bound_by']} at the tensor-core rate "
+            f"({row['tc_flops'] / 1e6:.1f} MFLOP in passes, {row['bytes'] / 1e3:.1f} KB), "
+            f"{row['bound_us'] / row['us']:.1%} of bound; SIMT bound "
+            f"{row['simt_bound_us']:.4f} us ({row['flops'] / 1e6:.1f} MFLOP at 67 TFLOP/s), "
+            f"{row['simt_bound_us'] / row['us']:.1%}; twin {plain_us:.2f} us/step; "
+            f"torch.matmul {lib_s} us/step; {row['launches']} launches")
+    below = [r["variant"] for r in rows if r["bound_us"] > r["us"]]
+    if below:  # faster than the card can be: the count is wrong
+        raise AssertionError(f"probe steps faster than their bound: {below}")
     return launches, rows
 
 

@@ -14,9 +14,10 @@ that rotates with the step. Per-step time comes from the (N1, N2) = (256,
 Geometry: C = 4 channels x 72 window rows, a 384-lane window cut to 256,
 512 samples a step. The reference's ``S360_BODY_C/BH/BW/BWB/PG`` overrides
 have no counterpart: the kernel (``csrc/kernel_body_cost.cu``) is compiled
-for this geometry. The reference's product is ``dot3``, the TPU's 3-pass
-bf16 emulation of a float32 product; the kernel and its twin
-(:func:`body_cost_plain`) take one float32 product.
+for this geometry. The product is the reference's own ``dot3`` (both
+operands split into bfloat16 high and low parts, three products summed in
+float32): the kernel takes it on the bf16 tensor cores, its twin
+(:func:`body_cost_plain`) in plain PyTorch (:func:`dot3`).
 
     python -m surround360_tpu_torch.benchmarks.kernel_body_cost [--device cpu]
 Env: S360_STEP_REPS (10), S360_BODY_ONLY (one variant).
@@ -33,8 +34,8 @@ import torch
 
 from . import probe_common as pc
 
-__all__ = ["VARIANTS", "body_cost", "body_cost_plain", "make_inputs", "run",
-           "components", "main"]
+__all__ = ["VARIANTS", "dot3", "body_cost", "body_cost_plain", "make_inputs",
+           "run", "components", "main"]
 
 C, BH, BW, BWB, PG = 4, 72, 384, 256, 512
 DMA_ROWS = 64  # extra window rows of full_dma's source (rows rotate by 8)
@@ -65,6 +66,18 @@ def _check(variant, shifts, xs, ys, win):
         raise ValueError(f"win must be (>= {rows}, {BW}) float32")
 
 
+def dot3(a, b):
+    """The reference's ``dot3``: a @ b^T (a (..., M, K), b (..., N, K)) with
+    both operands split into bfloat16 high and low parts (round to nearest
+    even), ah.bh + al.bh + ah.bl, each product in float32."""
+    ah = a.to(torch.bfloat16).float()
+    al = (a - ah).to(torch.bfloat16).float()
+    bh = b.to(torch.bfloat16).float()
+    bl = (b - bh).to(torch.bfloat16).float()
+    f = lambda p, q: torch.matmul(p, q.transpose(-1, -2))
+    return f(ah, bh) + f(al, bh) + f(ah, bl)
+
+
 def _stub(v, width):
     """The reference's stand-in for a matrix: v[:, None] * 1e-3."""
     return (v[..., None] * 1e-3).expand(*v.shape, width)
@@ -83,7 +96,7 @@ def _plain_chunk(t, steps, shifts, x, y, win):
         shift = shifts.long() if t["roll"] else torch.zeros_like(shifts, dtype=torch.long)
         cols = torch.remainder(torch.arange(BWB, device=dev)[None] - shift[:, None], BW)
         wm = win[rows[:, :, None], cols[:, None, :]]  # (n, C * BH, BWB)
-        tmp = torch.matmul(ohx, wm.transpose(-1, -2))  # (n, PG, C * BH)
+        tmp = dot3(ohx, wm)  # (n, PG, C * BH)
     else:
         tmp = _stub(x, C * BH) + ohx[..., :1]
     if t["reduce"]:

@@ -1,6 +1,7 @@
 """What the two kernel probes (``kernel_step_cost``, ``kernel_body_cost``)
-share: the bicubic tent, the build and load of a probe's CUDA library,
-the launch counts, the device check and the grid-contrast timers."""
+share: the bicubic tent, TF32 rounding (the K4 kernel's operand split), the
+build and load of a probe's CUDA library, the launch counts, the device
+check and the grid-contrast timers."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ __all__ = [
     "launch_count",
     "reset_launch_counts",
     "tent",
+    "tf32_round",
     "probe_device",
     "load_library",
     "launch",
@@ -48,6 +50,17 @@ def tent(d: torch.Tensor) -> torch.Tensor:
     k01 = ((a + 2.0) * s - (a + 3.0)) * s * s + 1.0
     k12 = ((a * s - 5.0 * a) * s + 8.0 * a) * s - 4.0 * a
     return torch.where(s < 1.0, k01, torch.where(s < 2.0, k12, 0.0))
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to TF32 (10 mantissa bits) as the card's
+    ``cvt.rna.tf32.f32`` rounds: to nearest, ties away from zero. Bit
+    arithmetic on the int32 view: half of the 13 dropped bits is added to
+    the magnitude (a carry runs into the exponent), then they are cut."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    sign = bits & -(2**31)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
 
 
 def probe_device(*tensors: torch.Tensor) -> str:

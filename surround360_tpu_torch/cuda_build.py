@@ -12,11 +12,13 @@ from __future__ import annotations
 import concurrent.futures
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build", "build_all", "ptxas_report"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "build", "build_all", "ptxas_report",
+           "kernel_resources", "hmma_counts"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -81,6 +83,46 @@ def ptxas_report(source: str) -> list[str]:
         return []
     keep = ("Compiling entry", "registers", "spill")
     return [ln.split("ptxas info    : ")[-1] for ln in lines if any(k in ln for k in keep)]
+
+
+def kernel_resources(source: str) -> dict[str, dict]:
+    """Per kernel of ``source``'s build (mangled name), ptxas's registers
+    and spill bytes: {name: {"registers", "spill_stores", "spill_loads"}}."""
+    out, name = {}, None
+    for line in ptxas_report(source):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": None, "spill_loads": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+    return out
+
+
+def hmma_counts(source: str) -> dict[str, int]:
+    """Per kernel of ``source``'s built library (mangled name), the count
+    of tensor-core (HMMA) instructions in its SASS, read with the
+    toolkit's ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(_find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build(source)], capture_output=True,
+                          text=True, check=True).stdout
+    instr = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?HMMA\b")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and instr.search(line):
+            counts[name] += 1
+    return counts
 
 
 def build_all() -> dict[str, float]:

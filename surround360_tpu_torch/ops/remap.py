@@ -164,8 +164,8 @@ def plan_static_remap(
     coords_np: np.ndarray,
     H: int,
     W: int,
-    interpolation: str = "bicubic",
-    device="cpu",
+    interpolation: str,
+    device,
     tr: int = 16,
     tc: int = 128,
 ) -> StaticRemapPlan:

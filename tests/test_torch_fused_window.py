@@ -200,7 +200,7 @@ def test_static_remap_c3_wide_windows_matches_jax():
     y = 3.0 + gy * ((H - 7.0) / Ho) + rng.uniform(-0.5, 0.5, (Ho, Wo))
     x[:16] = rng.uniform(3.0, W - 4.0, (16, Wo))  # every longitude in each tile
     coords = np.stack([x, y]).astype(np.float32)
-    plan = plan_static_remap(coords[None], H, W, "bicubic")
+    plan = plan_static_remap(coords[None], H, W, "bicubic", "cpu")
     assert plan.bw >= W - 8 and plan.xt.shape == (3 * 2, 1, 16 * 128)
     got = remap_static_banded(_t(img), coords, "bicubic", "constant").numpy()
     assert got.shape == (3, Ho, Wo)

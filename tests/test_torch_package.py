@@ -425,8 +425,8 @@ def test_probe_wrappers_raise_on_other_devices():
 
 
 def _gpu_probes():
-    """The probe modules on the card, TF32 off (their twins take
-    torch.matmul); skips without a CUDA device."""
+    """The probe modules on the card, TF32 off (their twins' products are
+    float32 torch.matmul); skips without a CUDA device."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -441,7 +441,8 @@ def _gpu_probes():
                                   "kernel_step_cost_dma"])
 def test_step_cost_kernel_matches_twin_on_gpu(site):
     """K4 at each of its three sites against the twin on the card: within
-    1e-5 of the output's max |value| (float32 sums in another order)."""
+    1e-5 of the output's max |value| (3xTF32 against float32, sums in
+    another order)."""
     dev, KS, _ = _gpu_probes()
     rng = np.random.default_rng(4)
     for name, (s, _) in KS.VARIANTS.items():
@@ -458,7 +459,8 @@ def test_step_cost_kernel_matches_twin_on_gpu(site):
 @pytest.mark.gpu
 def test_body_cost_kernel_matches_twin_on_gpu():
     """K5, every variant, against the twin on the card: within 2e-5 of
-    max(1, the output's max |value|)."""
+    max(1, the output's max |value|) (both the reference's dot3, sums in
+    another order)."""
     dev, _, KB = _gpu_probes()
     rng = np.random.default_rng(5)
     for name in KB.VARIANTS:

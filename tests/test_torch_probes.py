@@ -12,12 +12,11 @@ held to the recorded outputs:
 
 - K4 (``Precision.HIGHEST`` float32 in interpret mode): max-abs within
   1e-5 of the output's max |value| (measured: <= 8e-7 relative; the dots
-  body reaches ~7e4).
+  body reaches ~7e4). A plain emulation of the kernel's 3xTF32 products
+  (``probe_common.tf32_round``) is held to the same records and bound.
 - K5 (the reference's ``dot3`` is a 3-pass bf16 product even in interpret
-  mode, the twin one float32 product): max-abs within 2e-5 of max(1, the
-  output's max |value|) (measured: 9.8e-6 at values ~1.2 for the product
-  variants, 2.6e-4 at ~35 for no_ohx, i.e. 7.5e-6 relative; no_dot, which
-  has no product, 1.8e-7).
+  mode, and so is the twin's): max-abs within 2e-5 of max(1, the output's
+  max |value|) (no_dot, which has no product, measured 1.8e-7).
 """
 
 import json
@@ -113,6 +112,81 @@ def test_k4_twin_matches_reference_pallas_body(k4_records, variant):
         assert got.shape == want.shape == (2, KS.out_rows(variant), KS.PG)
         err = float(np.abs(got.numpy() - want).max())
         assert err <= K4_REL * float(np.abs(want).max()), (variant, err)
+
+
+def _tf32x3_summed(oh, w):
+    """The K4 kernel's arithmetic in plain PyTorch: both operands split
+    into TF32 hi + lo (cvt.rna), lo.hi + hi.lo + hi.hi in float32, then the
+    64 columns summed."""
+    ah = pc.tf32_round(oh)
+    al = pc.tf32_round(oh - ah)
+    bh = pc.tf32_round(w)
+    bl = pc.tf32_round(w - bh)
+    f = lambda p, q: torch.matmul(p, q.transpose(-1, -2))
+    return (f(al, bh) + f(ah, bl) + f(ah, bh)).sum(-1)
+
+
+@pytest.mark.parametrize("variant", list(KS.VARIANTS))
+def test_k4_tf32x3_matches_reference(k4_records, variant, monkeypatch):
+    """3xTF32 holds K4's tolerance against the reference's float32: the
+    twin with its products taken as the kernel takes them."""
+    monkeypatch.setattr(KS, "_summed", _tf32x3_summed)
+    for args, want in k4_records[variant]:
+        x = torch.from_numpy(args[0][:2].copy())
+        src = torch.from_numpy(args[1].copy())
+        dma = KS.VARIANTS[variant][0] == KS.SITE_DMA
+        got = KS.step_cost_plain(variant, x, None if dma else src, src if dma else None)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= K4_REL * float(np.abs(want).max()), (variant, err)
+
+
+def test_tf32_round_hand_picked():
+    """cvt.rna.tf32.f32: 10 mantissa bits kept, to nearest, ties away
+    from zero."""
+    e = 2.0 ** -10  # one TF32 ulp at 1
+    v = torch.tensor([1.0, 1 + e / 2, 1 + 3 * e / 2, 1 + e / 2 - 2.0 ** -23, 2 - e / 4,
+                      -(1 + e / 2), -(1 + e / 2 - 2.0 ** -23), 0.0, -0.0, 3.0, 1e-40])
+    want = [1.0, 1 + e, 1 + 2 * e, 1.0, 2.0, -(1 + e), -1.0, 0.0, -0.0, 3.0]
+    got = pc.tf32_round(v)
+    assert got[:-1].tolist() == want  # ties away (1 + e/2 -> 1 + e), a carry into 2
+    assert torch.signbit(got[8])
+    assert float(got[-1]) == pytest.approx(1e-40, rel=2 ** -10)  # subnormal: 10 bits kept
+    bits = got.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())
+
+
+def test_k5_dot3_twin_is_the_references_dot3():
+    """KB.dot3 takes the reference's ``dot3`` arithmetic: bf16 hi / lo
+    splits bit-equal to jnp's astype (round to nearest even), the three
+    float32 products summed alike (within 1e-6 of the scale: sums in
+    another order)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((64, KB.BWB)).astype(np.float32)
+    b = rng.random((KB.C * KB.BH, KB.BWB)).astype(np.float32)
+
+    def ref_dot3(ax, bx):  # benchmarks/kernel_body_cost.py::main.dot3
+        ah = ax.astype(jnp.bfloat16)
+        al = (ax - ah.astype(jnp.float32)).astype(jnp.bfloat16)
+        bh_ = bx.astype(jnp.bfloat16)
+        bl = (bx - bh_.astype(jnp.float32)).astype(jnp.bfloat16)
+        dn = (((1,), (1,)), ((), ()))
+        f = lambda p, q: jax.lax.dot_general(p, q, dimension_numbers=dn,
+                                             preferred_element_type=jnp.float32)
+        return f(ah, bh_) + f(al, bh_) + f(ah, bl), (ah, al)
+
+    want, (ah, al) = ref_dot3(jnp.asarray(a), jnp.asarray(b))
+    ta = torch.from_numpy(a)
+    th = ta.to(torch.bfloat16)
+    assert np.array_equal(th.float().numpy(), np.asarray(ah.astype(jnp.float32)))
+    assert np.array_equal((ta - th.float()).to(torch.bfloat16).float().numpy(),
+                          np.asarray(al.astype(jnp.float32)))
+    got = KB.dot3(ta, torch.from_numpy(b)).numpy()
+    want = np.asarray(want)
+    assert float(np.abs(got - want).max()) <= 1e-6 * float(np.abs(want).max())
+    f32 = a @ b.T  # and it is not the float32 product
+    assert float(np.abs(got - f32).max()) > 1e-6 * float(np.abs(f32).max())
 
 
 @pytest.mark.parametrize("variant", list(KB.VARIANTS))
@@ -237,11 +311,15 @@ def test_probe_mains_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("variant", list(KS.VARIANTS) + list(KB.VARIANTS))
-def test_smoke_yardstick_computes_the_variants_products(variant):
+def test_smoke_yardstick_computes_the_variants_products(variant, monkeypatch):
     """chip_smoke.probe_library's batched torch.matmul is the variant's own
     product: finished like the body (K4: the 64 columns summed; K5: the
-    channel reduction or its stub) it gives the twin's output."""
+    channel reduction or its stub) it gives the twin's output. The
+    yardstick is one float32 product, so K5's twin takes its product in
+    float32 here, in place of ``dot3``."""
     import chip_smoke as cs
+
+    monkeypatch.setattr(KB, "dot3", lambda a, b: torch.matmul(a, b.transpose(-1, -2)))
 
     rng = np.random.default_rng(6)
     if variant in KS.VARIANTS:
@@ -270,21 +348,71 @@ def test_smoke_yardstick_computes_the_variants_products(variant):
 
 
 def test_smoke_bounds_are_the_hand_counts():
-    """chip_smoke.probe_bound: 5 (8) products of 2 * 512 * 512 * 64 FLOPs a
-    K4 step at 67 TFLOP/s; K5's 2 * 512 * 256 * 288 product plus its
-    2 * 512 * 288 reduction; no_dot's bound is its reduction's FLOPs, just
-    above its 12 KB of bytes."""
+    """chip_smoke.probe_bound's SIMT column: 5 (8) products of 2 * 512 *
+    512 * 64 FLOPs a K4 step at 67 TFLOP/s; K5's 2 * 512 * 256 * 288
+    product plus its 2 * 512 * 288 reduction; no_dot's bound is its
+    reduction's FLOPs, just above its 12 KB of bytes."""
     import chip_smoke as cs
 
     b = cs.probe_bound(KS.SITE_VARIANT, "tent_plus_dots_x5")
     assert b["flops"] == 5 * 2 * 512 * 512 * 64 and b["bound_by"] == "operations"
-    assert b["bound_us"] == pytest.approx(2.504, abs=1e-3)
-    assert cs.probe_bound(KS.SITE_DYN, "lead8_fori")["bound_us"] == pytest.approx(4.006, abs=1e-3)
+    assert b["simt_bound_us"] == pytest.approx(2.504, abs=1e-3)
+    assert cs.probe_bound(KS.SITE_DYN, "lead8_fori")["simt_bound_us"] == pytest.approx(
+        4.006, abs=1e-3)
     dma = cs.probe_bound(KS.SITE_DMA, "tent_dots_dyn_dma_x5")
     assert dma["bytes"] == 512 * 4 + 5 * 512 * 4 + 64 * 512 * 4
     full = cs.probe_bound(KB.SITE, "full")
     assert full["flops"] == 2 * 512 * 256 * 288 + 2 * 512 * 288
-    assert full["bound_us"] == pytest.approx(1.1312, abs=1e-4)
+    assert full["simt_bound_us"] == pytest.approx(1.1312, abs=1e-4)
     no_dot = cs.probe_bound(KB.SITE, "no_dot")
     assert no_dot["bytes"] == 2 * 512 * 4 + 4 + 4 * 512 * 4 and no_dot["bound_by"] == "operations"
     assert cs.probe_bound(KB.SITE, "full_dma")["bytes"] == full["bytes"] + 288 * 256 * 4
+
+
+def test_smoke_tensor_core_bounds_are_the_hand_counts():
+    """chip_smoke.probe_bound at the rate of the products' precision: K4's
+    products as 3 TF32 passes at 495 TFLOP/s (1.017 us a K4a / K4c step,
+    1.627 us for K4b's 8 leads); K5's dot3 as 3 bf16 passes at 989 TFLOP/s
+    plus its reduction at 67 TFLOP/s (0.2334 us); no_dot, with no product,
+    keeps its SIMT bound."""
+    import chip_smoke as cs
+
+    k4 = 2 * 512 * 512 * 64
+    for site, name, n in ((KS.SITE_VARIANT, "dots_x5", 5), (KS.SITE_VARIANT, "tent_dots_roll_x5", 5),
+                          (KS.SITE_DMA, "tent_dots_dyn_dma_x5", 5), (KS.SITE_DYN, "lead8_unrolled", 8)):
+        b = cs.probe_bound(site, name)
+        assert b["tc_flops"] == 3 * n * k4 and b["bound_by"] == "operations"
+        assert b["bound_us"] == pytest.approx(3 * n * k4 / 495e12 * 1e6, rel=1e-12)
+    assert cs.probe_bound(KS.SITE_VARIANT, "tent_plus_dots_x5")["bound_us"] == pytest.approx(
+        1.0168, abs=1e-4)
+    assert cs.probe_bound(KS.SITE_DYN, "lead8_fori")["bound_us"] == pytest.approx(1.6269, abs=1e-4)
+    full = cs.probe_bound(KB.SITE, "full")
+    assert full["tc_flops"] == 3 * 2 * 512 * 256 * 288
+    assert full["bound_us"] == pytest.approx(0.22901 + 0.00440, abs=1e-5)
+    assert cs.probe_bound(KB.SITE, "no_reduce")["bound_us"] == pytest.approx(0.22901, abs=1e-5)
+    assert cs.probe_bound(KB.SITE, "full_dma")["bound_by"] == "operations"
+    no_dot = cs.probe_bound(KB.SITE, "no_dot")
+    assert no_dot["tc_flops"] == 0 and no_dot["bound_us"] == no_dot["simt_bound_us"]
+    for name in KB.VARIANTS:  # never above the SIMT bound, never below the bytes
+        b = cs.probe_bound(KB.SITE, name)
+        assert b["bytes_us"] <= b["bound_us"] <= b["simt_bound_us"]
+
+
+def test_kernel_resources_read_ptxas(monkeypatch, tmp_path):
+    """cuda_build.kernel_resources: registers and spill bytes per kernel
+    from ptxas's -v report kept beside a build."""
+    from surround360_tpu_torch import cuda_build
+
+    so = tmp_path / "libk.so"
+    (tmp_path / "libk.so.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 134656 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n")
+    monkeypatch.setattr(cuda_build, "_so_path", lambda source: str(so))
+    assert cuda_build.kernel_resources("k.cu") == {
+        "_Z1aPf": {"registers": 168, "spill_stores": 8, "spill_loads": 12},
+        "_Z1bPf": {"registers": 40, "spill_stores": None, "spill_loads": None}}
