@@ -104,6 +104,20 @@ and 15 run after phase 9, while phase 4's context is alive:
    flow_quality (pixflow_tpu under tests/test_flow_quality.py's
    thresholds); trace_grid_economics on phase 4's 6k context. Every
    harness runs through its entry point; any failure row fails the run.
+16. capture: the capture daemon (capture/daemon.py over two native rings)
+   records phase 10's 17 packed 12-bit 2048x2048 payloads for 8 frames
+   into two .bin files (cameras round-robin), one camera skipping a frame
+   counter; requires 1 drop counted and every frame read back byte-equal
+   through BinaryFootageReader; prints frames/s and GB/s of the record.
+17. preview: the preview CLI (cli/preview.main) on those files, on the
+   card, at 1024x512 (every frame) and 4096x2048 (two frames): the
+   renderer's ms a frame (CUDA events around PreviewRenderer.render),
+   the JPEG encode's ms, the loop's frames/s and the peak memory; frame 0
+   on the card within 1e-4 of the CPU's, the top pole within 0.1 mean abs
+   of the simulator's environment (the bottom pole is painted); then the
+   CLI on the CPU at 1024x512 for phase 18. The .bin files are removed.
+18. compare: cli/compare.main on phase 17's JPEGs, the card's directory
+   against itself (> 100 dB) and against the CPU's with --min_psnr_db 40.
 
 Then the kernels' JSON line (K1-K3 and the four probe sites), the card's
 name and power limit, and last
@@ -145,6 +159,11 @@ ISP_MEAN_ERR = 0.01  # unpacked frame vs the simulator's view, interior mean
 ISP_STEP_MAX = 0.05  # ISP on the card vs the CPU: a tone-LUT entry near black, sharpened
 ISP_FLIPS_MAX = 0.005  # share of values whose LUT index may flip
 POLE_PSNR_MIN = 40.0  # mask interior vs the unpainted view, dB
+CAPTURE_FRAMES = 8  # frames the capture daemon records (phase 16)
+CAPTURE_GAP = (5, 4)  # (camera, frame): that camera's counter skips one there
+PREVIEW_SIZES = ((1024, 512, 0), (4096, 2048, 2))  # (w, h, frames; 0: all)
+PREVIEW_MAX_ERR = 1e-4  # the card's preview frame vs the CPU's, max-abs
+POLE_ENV_ERR = 0.1  # top pole vs the environment, mean abs (tests/test_preview_dng.py)
 PALLAS = "surround360_tpu/ops/pallas_remap.py"
 REPLACES = {
     "fused_window_sample": f"{PALLAS}:640",
@@ -1255,6 +1274,157 @@ def phase_debug_profile(rig, root, device_name="cuda", small_scale=0.25):
         f"{FRAMES} frames in {wall:.1f} s; runtimes.txt: {'; '.join(runtimes)}")
 
 
+def phase_capture(root, frames=CAPTURE_FRAMES):
+    """CaptureDaemon records phase 10's payloads (each camera's frame 0 of
+    ``root``/bins/0.bin, stamped with its serial) for ``frames`` frames over
+    two consumers, with one counter gap; every frame read back equal to its
+    payload. Returns the directory of the two .bin files."""
+    from surround360_tpu_torch.capture.daemon import CaptureDaemon
+    from surround360_tpu_torch.isp import BinaryFootageReader
+
+    src = BinaryFootageReader(os.path.join(root, "bins", "0.bin"))
+    md = src.metadata
+    n_cams = src.num_cameras
+    payloads = [bytes(src.get_frame_bytes(0, c)) for c in range(n_cams)]
+    serials = [src.get_serial(0, c) for c in range(n_cams)]
+    dest = os.path.join(WORK, "recorded")
+    shutil.rmtree(dest, ignore_errors=True)
+    os.makedirs(dest)
+    paths = [os.path.join(dest, f"{i}.bin") for i in range(2)]
+    gap_cam, gap_frame = CAPTURE_GAP
+
+    def source(frame, cam):
+        return payloads[cam], frame + int(cam == gap_cam and frame >= gap_frame)
+
+    daemon = CaptureDaemon(paths, md.width, md.height, md.bits_per_pixel, serials)
+    t0 = time.perf_counter()
+    stats = daemon.record(source, frames)
+    wall = time.perf_counter() - t0
+    n = frames * n_cams
+    if (stats.frames_produced, stats.frames_written, stats.frames_dropped) != (n, n, 1):
+        raise AssertionError(f"capture stats {stats}, want {n} produced and written, 1 drop")
+    for cid, path in enumerate(paths):
+        r = BinaryFootageReader(path)
+        cams = [c for c in range(n_cams) if c % 2 == cid]
+        got_md = (r.num_frames, r.num_cameras, r.metadata.file_index, r.metadata.file_count)
+        if got_md != (frames, len(cams), cid, 2):
+            raise AssertionError(f"{path}: frames, cameras, index, count {got_md}")
+        for f in range(frames):
+            for i, c in enumerate(cams):
+                if bytes(r.get_frame_bytes(f, i)) != payloads[c]:
+                    raise AssertionError(f"{path}: frame {f} of camera {c} differs")
+    gb = n * md.frame_size / 1e9
+    log(f"[16 capture] CaptureDaemon, {n_cams} cameras x {frames} frames of "
+        f"{md.width}x{md.height} {md.bits_per_pixel}-bit ({gb:.3f} GB) over 2 consumers "
+        f"in {wall:.3f} s: {frames / wall:.2f} frames/s ({n / wall:.1f} camera frames/s), "
+        f"{gb / wall:.3f} GB/s; drops counted {stats.frames_dropped} (camera "
+        f"{gap_cam} skips a counter at frame {gap_frame}); every frame read back equal")
+    return dest
+
+
+def phase_preview(root, rec_dir, device_name="cuda", sizes=PREVIEW_SIZES):
+    """The preview CLI on the recorded footage at each size on the device;
+    frame 0 against the CPU and the environment; then the CLI on the CPU at
+    the first size. Removes the recorded footage; returns the device's and
+    the CPU's JPEG directories of the first size."""
+    import torch
+
+    from surround360_tpu_torch.capture import checker_sinusoid_environment
+    from surround360_tpu_torch.cli import preview
+    from surround360_tpu_torch.cli.common import StageTimer
+    from surround360_tpu_torch.geometry.rig import load_rig
+    from surround360_tpu_torch.isp import BinaryFootageReader
+    from surround360_tpu_torch.render.preview import PreviewRenderer
+
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    rig_json = os.path.join(root, "rig.json")
+    rig = load_rig(rig_json)
+    readers = [BinaryFootageReader(os.path.join(rec_dir, f"{i}.bin")) for i in range(2)]
+    raws = preview.fisheye_raws(readers, rig, 0)
+    del readers
+    rig = rig.rescaled(raws[0].shape[1] / float(rig.cameras[0].resolution[0]))
+    dirs = []
+    for w, h, count in sizes:
+        dest = os.path.join(WORK, f"preview_{w}x{h}")
+        shutil.rmtree(dest, ignore_errors=True)
+        argv = ["--binary_prefix", rec_dir, "--file_count", "2", "--rig_json_file",
+                rig_json, "--preview_dest", dest, "--eqr_width", str(w), "--eqr_height",
+                str(h), "--frame_count", str(count), "--device", device_name]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        written = preview.main(argv, timer=timer)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        if len(written) != (count or CAPTURE_FRAMES):
+            raise AssertionError(f"preview wrote {written}")
+        stages = timer.totals()
+        loop = sum(secs for _, secs in stages.values())
+        enc_n, enc_s = stages["encode"]
+
+        pr = PreviewRenderer(rig, eqr_width=w, eqr_height=h, device=device)
+        dev_raws = [torch.from_numpy(r).to(device) for r in raws]
+        ms = cuda_ms(lambda: pr.render(*dev_raws)) if on_card else float("nan")
+        frame = pr.render(*dev_raws).cpu()
+        if frame.shape != (3, h, w) or not bool(torch.isfinite(frame).all()):
+            raise AssertionError(f"preview frame {tuple(frame.shape)}")
+        err = float("nan")
+        if (w, h, count) == sizes[0]:
+            ref = PreviewRenderer(rig, eqr_width=w, eqr_height=h, device="cpu").render(*raws)
+            err = float((frame - ref).abs().max())
+            if err > PREVIEW_MAX_ERR:
+                raise AssertionError(f"preview on {device_name} vs CPU: max-abs {err}")
+        # the top pole against the environment, at tests/test_preview_dng.py's row
+        y = h * 8 // 128
+        phi = np.pi * (y + 0.5) / h
+        xs = np.arange(0, w, w // 16)
+        theta = 2.0 * np.pi * (1.0 - (xs + 0.5) / w)
+        dirs_xyz = np.stack([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+                             np.full_like(theta, np.cos(phi))], -1)
+        env = np.stack([checker_sinusoid_environment(v) for v in dirs_xyz], -1)
+        pole = float(np.abs(frame.numpy()[:, y, xs] - env).mean())
+        if pole >= POLE_ENV_ERR:
+            raise AssertionError(f"top pole off the environment: mean abs {pole}")
+        log(f"[17 preview] preview.main on {device_name}, {w}x{h}, {len(written)} frames "
+            f"in {wall:.3f} s (renderer set-up included): render {ms:.3f} ms a frame "
+            f"(CUDA events), JPEG encode {1e3 * enc_s / enc_n:.1f} ms a frame, loop "
+            f"{len(written) / loop:.2f} frames/s; peak {peak:.3f} GiB; loop stages, "
+            "seconds summed (entries): " + ", ".join(
+                f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items())
+            + f"; frame 0 vs CPU max-abs {err:.3g} (<= {PREVIEW_MAX_ERR}), top pole "
+            f"vs the environment mean abs {pole:.4f} (< {POLE_ENV_ERR})")
+        dirs.append(dest)
+    w, h, count = sizes[0]
+    cpu_dir = os.path.join(WORK, f"preview_{w}x{h}_cpu")
+    shutil.rmtree(cpu_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    preview.main(["--binary_prefix", rec_dir, "--file_count", "2", "--rig_json_file",
+                  rig_json, "--preview_dest", cpu_dir, "--eqr_width", str(w),
+                  "--eqr_height", str(h), "--frame_count", str(count), "--device", "cpu"])
+    log(f"[17 preview] preview.main on the CPU, {w}x{h}: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(rec_dir)
+    return dirs[0], cpu_dir
+
+
+def phase_compare(card_dir, cpu_dir):
+    """compare.main on the preview JPEGs: the card's directory against
+    itself and against the CPU's (--min_psnr_db 40 exits non-zero below)."""
+    from surround360_tpu_torch.cli import compare
+
+    t0 = time.perf_counter()
+    same = compare.main(["--dir_a", card_dir, "--dir_b", card_dir])
+    if same["psnr_min_db"] <= 100.0:
+        raise AssertionError(f"a directory against itself: {same['psnr_min_db']} dB")
+    rep = compare.main(["--dir_a", card_dir, "--dir_b", cpu_dir, "--min_psnr_db",
+                        str(PSNR_MIN)])
+    log(f"[18 compare] compare.main, {rep['frames']} JPEGs, card vs itself: min "
+        f"{same['psnr_min_db']:.1f} dB; card vs CPU: mean {rep['psnr_mean_db']:.2f} dB, "
+        f"min {rep['psnr_min_db']:.2f} dB (--min_psnr_db {PSNR_MIN}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def _probe_cases(rng, device):
     """(site, variant, inputs, kernel call, twin, tolerance, scale floor)
     for every K4 and K5 variant, at the smaller grid of the pair that the
@@ -1694,6 +1864,9 @@ def main():
     k1_new, k3_new = phase_product_sites(record)
     del record
     phase_debug_profile(rig, root)
+    rec_dir = phase_capture(root)
+    card_dir, cpu_dir = phase_preview(root, rec_dir)
+    phase_compare(card_dir, cpu_dir)
     shutil.rmtree(WORK, ignore_errors=True)
     if small_failed or probe_failed:
         raise AssertionError(f"phase 3 or 14 failed: {small_failed + probe_failed}")

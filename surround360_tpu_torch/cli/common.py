@@ -5,12 +5,15 @@ per-stage getCurrTimeSec bracketing, util/SystemUtil.h:63-65,
 TestRenderStereoPanorama.cpp:963-971; the flow .bin layout of
 util/CvUtil.cpp:159-199).
 
-Images are PNG only, read and written by a small codec on ``zlib`` and
-``struct``: 8 or 16 bits per sample; grey, RGB or RGBA; every scanline
-filter on read; no interlace. Any other file raises ``ValueError``. The
-arrays are those of the reference's OpenCV reader and writer after its
-BGR <-> RGB reordering, so files written by either package read the same
-in both.
+Images are PNG or JPEG, read and written by the package's own codecs.
+PNG, on ``zlib`` and ``struct``: 8 or 16 bits per sample; grey, RGB or
+RGBA; every scanline filter on read; no interlace. JPEG (``.jpg``,
+``.jpeg``; ``cli/jpeg.py``): baseline, quality 95 and 4:2:0 chroma as
+OpenCV writes by default, 8 bits, grey or RGB (alpha is dropped). Any
+other file raises ``ValueError``. The arrays are those of the reference's
+OpenCV reader and writer after its BGR <-> RGB reordering, so files
+written by either package read the same in both (JPEG up to its
+decoder's rounding).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from .jpeg import read_jpeg, write_jpeg
 
 log = logging.getLogger("surround360_tpu_torch")
 
@@ -83,9 +88,17 @@ class StageTimer:
         return "\n".join(lines)
 
 
-def _check_png_path(path: str) -> None:
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise ValueError(f"only PNG images are supported: {path}")
+def _image_format(path: str) -> str:
+    """"png" or "jpeg" by the file's extension; anything else raises."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        return "png"
+    if ext in (".jpg", ".jpeg"):
+        return "jpeg"
+    raise ValueError(
+        f"unsupported image format {ext or '(no extension)'!r}: only PNG and "
+        f"JPEG are supported: {path}"
+    )
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -193,12 +206,11 @@ def read_png(path: str) -> np.ndarray:
 
 
 def read_image_rgba(path: str) -> np.ndarray:
-    """PNG -> (4, H, W) float32 RGBA in [0,1]; grey is copied to R, G, B
-    and a missing alpha is 1."""
+    """PNG or JPEG -> (4, H, W) float32 RGBA in [0,1]; grey is copied to
+    R, G, B and a missing alpha is 1."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    _check_png_path(path)
-    img = read_png(path)
+    img = read_png(path) if _image_format(path) == "png" else read_jpeg(path)
     scale = 255.0 if img.dtype == np.uint8 else 65535.0
     img = img.astype(np.float32) / scale
     if img.shape[-1] == 1:
@@ -209,14 +221,19 @@ def read_image_rgba(path: str) -> np.ndarray:
 
 
 def write_image(path: str, img, bit_depth: int = 8) -> None:
-    """(1|3|4, H, W) float [0,1] -> PNG of 8 or 16 bits per sample."""
-    _check_png_path(path)
-    if bit_depth not in (8, 16):
-        raise ValueError(f"bit_depth must be 8 or 16, got {bit_depth}")
+    """(1|3|4, H, W) float [0,1] -> PNG of 8 or 16 bits per sample, or
+    an 8-bit JPEG of quality 95 (grey or RGB; alpha is dropped)."""
+    fmt = _image_format(path)
+    if bit_depth not in (8, 16) or (fmt == "jpeg" and bit_depth != 8):
+        raise ValueError(f"bit_depth {bit_depth} is not supported for {fmt.upper()}")
     hwc = np.moveaxis(np.asarray(img), 0, -1)
     scale = 255.0 if bit_depth == 8 else 65535.0
     dtype = np.uint8 if bit_depth == 8 else np.uint16
-    write_png(path, np.clip(hwc * scale + 0.5, 0, scale).astype(dtype))
+    data = np.clip(hwc * scale + 0.5, 0, scale).astype(dtype)
+    if fmt == "png":
+        write_png(path, data)
+    else:
+        write_jpeg(path, data[..., :3] if data.shape[-1] == 4 else data)
 
 
 def save_flow(path: str, flow) -> None:

@@ -234,11 +234,30 @@ def pixel_to_rig_near_infinity(cam: Camera, pixel):
     return cam.position + NEAR_INFINITY * pixel_to_rig_direction(cam, pixel)
 
 
+def is_behind(cam: Camera, pts_rig):
+    """Points on or behind the camera's image plane (Camera.h:157-161)."""
+    v = np.asarray(pts_rig) - cam.position
+    return np.sum(cam.backward * v, axis=-1) >= 0
+
+
 def is_outside_fov(cam: Camera, pts_rig):
     v = np.asarray(pts_rig) - cam.position
     dot = -np.sum(cam.backward * v, axis=-1)
     general = dot * np.abs(dot) <= cam.fov_threshold * np.sum(v * v, axis=-1)
     return np.where(cam.fov_threshold == -1.0, False, general)
+
+
+def sees(cam: Camera, pts_rig):
+    """Points that project inside the frame and inside the fov
+    (Camera.h:174-181)."""
+    p = world_to_pixel(cam, pts_rig)
+    in_frame = (
+        (0 <= p[..., 0])
+        & (p[..., 0] < cam.resolution[..., 0])
+        & (0 <= p[..., 1])
+        & (p[..., 1] < cam.resolution[..., 1])
+    )
+    return in_frame & ~is_outside_fov(cam, pts_rig)
 
 
 def approximate_usable_pixels_radius(cam: Camera) -> float:

@@ -8,9 +8,6 @@ and loaded (False without g++ or when the build fails), and callers with a
 numpy path of their own (``isp/raw.py``) ask it first. Every other entry
 point needs the library: where it is missing it raises ``RuntimeError``
 with the compiler's message, it does not return None.
-
-The capture daemon's ring buffer (``NativeRing`` of the reference) is not
-ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +26,7 @@ __all__ = [
     "convert12_native",
     "pack12_native",
     "NativeFootageWriter",
+    "NativeRing",
 ]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -89,6 +87,16 @@ def _load():
     lib.s360_footage_writer_write.argtypes = [vp, u32, vp]
     lib.s360_footage_writer_close.restype = ctypes.c_int
     lib.s360_footage_writer_close.argtypes = [vp]
+    lib.s360_ring_create.restype = vp
+    lib.s360_ring_create.argtypes = [i64, i64]
+    lib.s360_ring_push.restype = ctypes.c_int
+    lib.s360_ring_push.argtypes = [vp, vp, i64]
+    lib.s360_ring_pop.restype = i64
+    lib.s360_ring_pop.argtypes = [vp, vp]
+    lib.s360_ring_done.restype = None
+    lib.s360_ring_done.argtypes = [vp]
+    lib.s360_ring_destroy.restype = None
+    lib.s360_ring_destroy.argtypes = [vp]
     _lib = lib
     return lib
 
@@ -189,3 +197,46 @@ class NativeFootageWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class NativeRing:
+    """Bounded single-producer / single-consumer ring of byte payloads
+    (the capture daemon's producer / consumer decoupling). ``push`` blocks
+    while every slot is full and ``pop`` while none is; both return at once
+    after ``done``: pushes then fail, pops drain what is left and then
+    return None. The calls release the GIL (ctypes), so a producer and a
+    consumer thread run side by side."""
+
+    def __init__(self, slot_size: int, n_slots: int):
+        self._lib = _load()
+        self._handle = self._lib.s360_ring_create(slot_size, n_slots)
+        if not self._handle:
+            raise ValueError(f"bad ring shape: {n_slots} slots of {slot_size} bytes")
+        self.slot_size = slot_size
+
+    def push(self, data) -> bool:
+        """Copy ``data`` into the next free slot; False once the ring is
+        done. A payload larger than a slot raises ``ValueError``."""
+        buf = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+        if buf.size > self.slot_size:
+            raise ValueError(
+                f"payload of {buf.size} bytes, ring slots of {self.slot_size}"
+            )
+        rc = self._lib.s360_ring_push(self._handle, buf.ctypes.data, buf.size)
+        if rc == -2:
+            raise ValueError(f"payload of {buf.size} bytes refused by the ring")
+        return rc == 0
+
+    def pop(self) -> bytes | None:
+        """The oldest payload, or None once the ring is done and drained."""
+        out = np.empty(self.slot_size, dtype=np.uint8)
+        n = self._lib.s360_ring_pop(self._handle, out.ctypes.data)
+        return None if n < 0 else out[:n].tobytes()
+
+    def done(self) -> None:
+        self._lib.s360_ring_done(self._handle)
+
+    def destroy(self) -> None:
+        if self._handle:
+            handle, self._handle = self._handle, None
+            self._lib.s360_ring_destroy(handle)

@@ -1,19 +1,23 @@
 // Native footage IO + raw conversion hot path of surround360_tpu_torch
-// (its own copy of the reference package's native/footage_io.cpp, without
-// the capture daemon's ring buffer):
+// (its own copy of the reference package's native/footage_io.cpp):
 // - RawConverter (surround360_render/source/camera_isp/RawConverter.cpp):
 //   8/12-bit packed sensor frames -> 16-bit planes (and the 12-bit packer
 //   used by the capture simulator);
 // - the consumer-thread footage writer of the capture app
 //   (surround360_camera_ctl_ui/source/CameraController.cpp:393-467):
 //   4096-byte header + per-frame (frameSize, serial) stamping, sequential
-//   appends.
+//   appends;
+// - the capture daemon's single-producer / single-consumer ring buffer
+//   (surround360_camera_ctl_ui/source/ProducerConsumer.h), which decouples
+//   frame production from disk writes.
 //
 // A plain C ABI for ctypes, built with g++ at first use (native/__init__.py).
 
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <mutex>
 #include <vector>
 
 extern "C" {
@@ -112,5 +116,69 @@ int s360_footage_writer_close(S360FootageWriter* w) {
   delete w;
   return rc;
 }
+
+// ---- producer/consumer ring buffer (ProducerConsumer.h:35-159) ----------
+
+struct S360Ring {
+  std::vector<uint8_t> storage;
+  std::vector<size_t> sizes;
+  size_t slot_size;
+  size_t n_slots;
+  size_t head = 0;  // next write
+  size_t tail = 0;  // next read
+  size_t count = 0;
+  bool done = false;
+  std::mutex mu;
+  std::condition_variable not_full, not_empty;
+};
+
+S360Ring* s360_ring_create(int64_t slot_size, int64_t n_slots) {
+  if (slot_size <= 0 || n_slots <= 0) return nullptr;
+  auto* r = new S360Ring();
+  r->slot_size = static_cast<size_t>(slot_size);
+  r->n_slots = static_cast<size_t>(n_slots);
+  r->storage.resize(r->slot_size * r->n_slots);
+  r->sizes.resize(r->n_slots, 0);
+  return r;
+}
+
+// blocks until a slot is free; returns 0, -1 after s360_ring_done, or -2
+// (without blocking) for a payload larger than a slot
+int s360_ring_push(S360Ring* r, const uint8_t* data, int64_t size) {
+  if (size < 0 || static_cast<size_t>(size) > r->slot_size) return -2;
+  std::unique_lock<std::mutex> lk(r->mu);
+  r->not_full.wait(lk, [r] { return r->count < r->n_slots || r->done; });
+  if (r->done) return -1;
+  memcpy(&r->storage[r->head * r->slot_size], data, static_cast<size_t>(size));
+  r->sizes[r->head] = static_cast<size_t>(size);
+  r->head = (r->head + 1) % r->n_slots;
+  ++r->count;
+  r->not_empty.notify_one();
+  return 0;
+}
+
+// blocks until data; returns the popped size, or -1 once the ring is done
+// and drained (a payload may have size 0)
+int64_t s360_ring_pop(S360Ring* r, uint8_t* out) {
+  std::unique_lock<std::mutex> lk(r->mu);
+  r->not_empty.wait(lk, [r] { return r->count > 0 || r->done; });
+  if (r->count == 0) return -1;
+  const size_t size = r->sizes[r->tail];
+  memcpy(out, &r->storage[r->tail * r->slot_size], size);
+  r->tail = (r->tail + 1) % r->n_slots;
+  --r->count;
+  r->not_full.notify_one();
+  return static_cast<int64_t>(size);
+}
+
+// wakes every waiter: pushes fail from now on, pops drain what is left
+void s360_ring_done(S360Ring* r) {
+  std::lock_guard<std::mutex> lk(r->mu);
+  r->done = true;
+  r->not_full.notify_all();
+  r->not_empty.notify_all();
+}
+
+void s360_ring_destroy(S360Ring* r) { delete r; }
 
 }  // extern "C"

@@ -15,17 +15,26 @@ from .resize import gaussian_blur
 
 __all__ = [
     "stack_horizontal",
+    "stack_vertical",
     "offset_horizontal_wrap",
     "feather_alpha",
     "circle_alpha_cut",
     "cut_mask_out_of_alpha",
+    "radial_alpha_fade",
+    "top_down_alpha_fade",
     "flatten_layers_deghost_prefer_base",
+    "flatten_layers_alpha_softmax",
 ]
 
 
 def stack_horizontal(images) -> torch.Tensor:
     """Concat along width (CvUtil.cpp:69-79)."""
     return torch.cat(list(images), dim=-1)
+
+
+def stack_vertical(images) -> torch.Tensor:
+    """Concat along height (CvUtil.cpp:81-91)."""
+    return torch.cat(list(images), dim=-2)
 
 
 def offset_horizontal_wrap(image: torch.Tensor, offset) -> torch.Tensor:
@@ -108,6 +117,24 @@ def cut_mask_out_of_alpha(image: torch.Tensor, mask: torch.Tensor) -> torch.Tens
     return _with_alpha(image, torch.where(mask, torch.zeros_like(alpha), alpha))
 
 
+def radial_alpha_fade(image: torch.Tensor) -> torch.Tensor:
+    """Multiply alpha by max(0, 1 - r/rmax) from the center
+    (CvUtil.cpp:312-325)."""
+    H, W = image.shape[-2:]
+    ys = torch.arange(H, dtype=torch.float32, device=image.device)[:, None] - H / 2.0
+    xs = torch.arange(W, dtype=torch.float32, device=image.device)[None, :] - W / 2.0
+    r = torch.sqrt(ys * ys + xs * xs) / (min(H, W) / 2.0)
+    fade = torch.clamp(1.0 - r, min=0.0)
+    return _with_alpha(image, image[..., 3, :, :] * fade)
+
+
+def top_down_alpha_fade(image: torch.Tensor) -> torch.Tensor:
+    """Multiply alpha by y/H (CvUtil.cpp:327-334)."""
+    H = image.shape[-2]
+    fade = (torch.arange(H, dtype=torch.float32, device=image.device) / H)[:, None]
+    return _with_alpha(image, image[..., 3, :, :] * fade)
+
+
 def flatten_layers_deghost_prefer_base(
     bottom: torch.Tensor, top: torch.Tensor
 ) -> torch.Tensor:
@@ -135,3 +162,15 @@ def flatten_layers_deghost_prefer_base(
     out_rgb = base_rgb * w_l[..., None, :, :] + top_rgb * w_r[..., None, :, :]
     out_a = torch.maximum(top[..., 3, :, :], bottom[..., 3, :, :])
     return torch.cat([out_rgb, out_a[..., None, :, :]], dim=-3)
+
+
+def flatten_layers_alpha_softmax(
+    layers: torch.Tensor, softmax_coef: float = 5.0
+) -> torch.Tensor:
+    """Blend N RGBA layers with weights exp(coef * alpha) - 1
+    (CvUtil.cpp:336-361). ``layers`` is (N, ..., 4, H, W); returns RGB
+    (..., 3, H, W)."""
+    w = torch.exp(softmax_coef * layers[..., 3:4, :, :]) - 1.0
+    num = torch.sum(w * layers[..., :3, :, :], dim=0)
+    den = torch.sum(w, dim=0)
+    return num / torch.where(den == 0, torch.ones_like(den), den)

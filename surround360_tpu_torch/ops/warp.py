@@ -19,6 +19,7 @@ __all__ = [
     "rig_fov",
     "spherical_warp_for_camera",
     "side_cam_spherical_warp",
+    "equirect_to_cam_warp",
     "CUBEMAP_FACE_ORDER",
     "equirect_to_cubemap_warp",
 ]
@@ -95,6 +96,29 @@ def side_cam_spherical_warp(
         -v_radians / 2.0,
     )
     return warp, (strip_h, strip_w)
+
+
+def equirect_to_cam_warp(
+    cam: Camera,
+    eqr_hw: tuple[int, int],
+    depth: float,
+) -> np.ndarray:
+    """Full-equirect -> camera warp (2, H, W): theta = 2 pi x / W,
+    phi = pi y / H measured from +z; unseen pixels get (-1, -1) so remap's
+    constant border yields transparent samples (projectEquirectToCam,
+    ImageWarper.cpp:179-196)."""
+    H, W = eqr_hw
+    theta = (np.arange(W, dtype=np.float64) + 0.5) * (2.0 * np.pi / W)
+    phi = (np.arange(H, dtype=np.float64) + 0.5) * (np.pi / H)
+    ph, th = np.meshgrid(phi, theta, indexing="ij")
+    direction = np.stack(
+        [np.sin(ph) * np.cos(th), np.sin(ph) * np.sin(th), np.cos(ph)], axis=-1
+    )
+    world = direction * depth
+    pix = cam_mod.world_to_pixel(cam, world)
+    visible = cam_mod.sees(cam, world)
+    coords = np.where(visible[None], np.moveaxis(pix, -1, 0) - 0.5, -1.0)
+    return coords.astype(np.float32)
 
 
 # face order matches convertSphericalToCubemapBicubicRemap

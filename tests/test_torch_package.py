@@ -19,6 +19,7 @@ SLICE_MODULES = [
     "surround360_tpu_torch.geometry.rig",
     "surround360_tpu_torch.ops.warp",
     "surround360_tpu_torch.capture.simulator",
+    "surround360_tpu_torch.capture.daemon",
     "surround360_tpu_torch.ops.resize",
     "surround360_tpu_torch.ops.filters",
     "surround360_tpu_torch.ops.compositing",
@@ -26,10 +27,12 @@ SLICE_MODULES = [
     "surround360_tpu_torch.ops.remap",
     "surround360_tpu_torch.ops.window_sampler",
     "surround360_tpu_torch.flow.pixflow",
+    "surround360_tpu_torch.flow.visualization",
     "surround360_tpu_torch.views.novel_view",
     "surround360_tpu_torch.render.panorama",
     "surround360_tpu_torch.render.pole",
     "surround360_tpu_torch.render.profiling",
+    "surround360_tpu_torch.render.preview",
     "surround360_tpu_torch.native",
     "surround360_tpu_torch.isp",
     "surround360_tpu_torch.isp.raw",
@@ -38,6 +41,9 @@ SLICE_MODULES = [
     "surround360_tpu_torch.isp.demosaic",
     "surround360_tpu_torch.isp.pipeline",
     "surround360_tpu_torch.cli.common",
+    "surround360_tpu_torch.cli.jpeg",
+    "surround360_tpu_torch.cli.preview",
+    "surround360_tpu_torch.cli.compare",
     "surround360_tpu_torch.cli.render_video",
     "surround360_tpu_torch.cli.unpack",
     "surround360_tpu_torch.cli.raw2rgb",
@@ -66,9 +72,10 @@ def _run(code: str, env_extra=None):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port brings in neither jax, cv2, nor
-    any module of the JAX package or its benchmark folder, builds nothing (no native library, no
-    kernel), and the list covers every module file of the package."""
+    """Importing every module of the port brings in neither jax, cv2, PIL,
+    nor any module of the JAX package or its benchmark folder, builds
+    nothing (no native library, no kernel), and the list covers every
+    module file of the package."""
     pkg = os.path.join(REPO, "surround360_tpu_torch")
     on_disk = set()
     for d, _, files in os.walk(pkg):
@@ -83,8 +90,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'cv2', 'benchmarks') or "
-        "m.startswith(('jax.', 'jaxlib', 'cv2.', 'benchmarks.', 'surround360_tpu.')) "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'cv2', 'PIL', 'benchmarks') or "
+        "m.startswith(('jax.', 'jaxlib', 'cv2.', 'PIL.', 'benchmarks.', 'surround360_tpu.')) "
         "or m == 'surround360_tpu')\n"
         "print('LEAKED', bad)\n"
         "import surround360_tpu_torch.native as native\n"
