@@ -1,6 +1,6 @@
 """Smoke run of surround360_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, 7 to 9 minutes
+    python3 chip_smoke.py            # every phase, 10 to 13 minutes
     python3 chip_smoke.py --quick    # phases 1-3, the probes against their
                                      # twins and the product path's kernel
                                      # sites on random inputs, ~40 s
@@ -118,6 +118,28 @@ and 15 run after phase 9, while phase 4's context is alive:
    CLI on the CPU at 1024x512 for phase 18. The .bin files are removed.
 18. compare: cli/compare.main on phase 17's JPEGs, the card's directory
    against itself (> 100 dB) and against the CPU's with --min_psnr_db 40.
+19. geometric calibration on the 17-camera 2048 px ring (no hand kernel on
+   this path; the sampler and probe counts are reset before phase 19 and
+   must read 0 after phase 20): (a) calibrate geometric --unit_test at
+   20000 points (~60 000 observations), 10 passes, 0.01 rad: refined RMSE
+   < 0.15 x the perturbed rig's, every forward dot > 0.99999
+   (tests/test_calib_geometric.py); observations, seconds a pass and an LM
+   iteration, peak memory. (b) the library at 2000 points, 0.5 px noise, 3
+   passes on the card and the CPU: rows within 1e-6 rad and 1e-4 px, RMSE
+   in 0.2-1.5 px. (c) the matcher: the 17 simulator views of a
+   corner-rich scene (calibration_environment: tests/test_matches.py's
+   sinusoid scene gives ORB next to no keypoints at 2048 px; the count is
+   printed), match_frames over every pair with overlap >= 0.05, the traces
+   through the library with tests/test_matches.py's config (median < 0.7 x,
+   forward dots > 0.999); the keypoints and matches written to a
+   COLMAP-schema database, converted by colmap_db_to_matches_json, and the
+   CLI's --matches_json and --frames_dir routes giving the same rig within
+   1e-9.
+20. vignetting: 100 frames of 2048x2048 16-bit PNG (a grey square on a
+   10x10 grid under a known separable Bezier rolloff, with noise); the
+   library on the card and the CPU (acquisition ms a frame, fit seconds;
+   locations within 1 px of the targets, gain x surface flat within 1%),
+   then calibrate vignetting on both: ISP JSON rolloff equal within 1e-6.
 
 Then the kernels' JSON line (K1-K3 and the four probe sites), the card's
 name and power limit, and last
@@ -126,8 +148,13 @@ name and power limit, and last
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
+import io
 import json
+import re
+import sqlite3
 import os
 import shutil
 import subprocess
@@ -196,6 +223,26 @@ LIBRARY_STEPS = 64  # steps of the batched torch.matmul yardstick
 FLOW_THRESHOLDS = {"translation": (0.006, 4.0), "rotation": (0.007, 2.0),
                    "zoom": (0.006, 2.0), "shear": (0.0025, 1.5), "occlusion": (0.022, 1.3)}
 QUALITY_PRESET = "3k"  # phase 15's preset_quality (phases 6 and 9 cover 6k)
+# phase 19: geometric calibration on the 17-camera 2048 px ring
+CALIB_POINTS = 20000  # (a) the CLI's --unit_test: ~60 000 observations
+CALIB_PASSES = 10
+CALIB_PERTURB = 0.01  # rad
+NOISE_POINTS = 2000  # (b) the library, 0.5 px noise, on the card and the CPU
+NOISE_PASSES = 3
+NOISE_ROT_TOL = 1e-6  # rad: card vs CPU, refined rotations
+NOISE_PX_TOL = 1e-4  # px: card vs CPU, principal point and focal length
+MATCH_PERTURB = 0.004  # (c) rad, principal point kept (tests/test_matches.py)
+CELL_DEGREES = 1.0  # (c) the calibration scene's large cells at 2048 px
+CLI_AGREE = 1e-9  # (c) --frames_dir vs --matches_json refined rigs, max-abs
+# phase 20: a vignetting sweep, SWEEP_GRID x SWEEP_GRID target positions
+SWEEP_SIZE = 2048
+SWEEP_GRID = 10
+SWEEP_NOISE = 0.004
+SWEEP_TARGET = 0.6  # the grey target over a 0.05 background, before rolloff
+SWEEP_HALF = 12  # the target is a (2 x 12 + 1) px square
+ROLLOFF_X = (0.55, 0.95, 1.1, 0.95, 0.6)  # the sweep's separable Bezier rolloff
+ROLLOFF_Y = (0.6, 1.0, 1.05, 0.9, 0.5)
+ROLLOFF_CPU_TOL = 1e-6  # the card's ISP JSON rolloff vs the CPU's
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_cli")  # gitignored; removed at the end
 
@@ -612,9 +659,9 @@ def phase_small():
 
 def _render_inputs(rig, device):
     from surround360_tpu_torch.benchmarks.preset_table import frame_inputs
-    from surround360_tpu_torch.capture import render_camera_views
+    from surround360_tpu_torch.capture import checker_sinusoid_environment
 
-    views = render_camera_views(rig)
+    views = _render_views(rig, checker_sinusoid_environment)
     return frame_inputs(rig, views, device), views
 
 
@@ -1425,6 +1472,365 @@ def phase_compare(card_dir, cpu_dir):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def calibration_environment(direction, cell_degrees=CELL_DEGREES):
+    """A corner-rich, aperiodic scene for the matcher: grey cells on the
+    faces of a cube around the rig, at two sizes (``cell_degrees`` and
+    2.7 times smaller), each cell's level hashed from its index. RGB
+    (..., 3) float32 of unit directions (..., 3)."""
+    a = np.abs(direction)
+    face = np.argmax(a, axis=-1)
+    major = np.take_along_axis(a, face[..., None], -1)[..., 0]
+    sign = np.take_along_axis(direction, face[..., None], -1)[..., 0] > 0
+    u = np.where(face == 0, direction[..., 1], direction[..., 0]) / major
+    v = np.where(face == 2, direction[..., 1], direction[..., 2]) / major
+    face_id = face * 2 + sign
+    level = np.zeros(u.shape)
+    for weight, degrees, salt in ((0.6, cell_degrees, 1), (0.4, cell_degrees / 2.7, 2)):
+        size = np.tan(np.deg2rad(degrees))
+        i = np.floor((u + 1) / size).astype(np.int64) + 100000 * face_id
+        j = np.floor((v + 1) / size).astype(np.int64)
+        h = (i * 73856093) ^ (j * 19349663) ^ (salt * 83492791)
+        h = (h ^ (h >> 13)) * 1274126177
+        h = h ^ (h >> 16)
+        level += weight * (h & 0xFFFF) / 65535.0
+    grey = (0.1 + 0.8 * level).astype(np.float32)
+    return np.stack([grey] * 3, axis=-1)
+
+
+def _render_views(rig, env_fn):
+    """render_camera_views, one camera a thread (numpy releases the GIL)."""
+    from surround360_tpu_torch.capture import render_camera_views
+    from surround360_tpu_torch.geometry.rig import Rig
+
+    def one(i):
+        return render_camera_views(
+            Rig([rig.cameras[i]], [rig.ids[i]], ["side camera"]), env_fn=env_fn)[0]
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(len(rig.cameras))))
+
+
+def _rig_fields_max_abs(a, b) -> float:
+    return max(float(np.abs(np.asarray(getattr(ca, f), np.float64)
+                            - np.asarray(getattr(cb, f), np.float64)).max())
+               for ca, cb in zip(a.cameras, b.cameras) for f in ca._fields)
+
+
+def _min_forward_dot(truth, rig) -> float:
+    return min(float(np.dot(np.asarray(t.forward), np.asarray(r.forward)))
+               for t, r in zip(truth.cameras, rig.cameras))
+
+
+_PASS_LINE = re.compile(r"pass (\d+): (\{.*\}) lm_iterations (\d+) seconds ([\d.]+)")
+
+
+def _calibrate_cli(argv):
+    """calibrate.main(argv) with its per-pass lines captured: (seconds,
+    [(report, LM iterations, seconds) a pass])."""
+    from surround360_tpu_torch.cli import calibrate
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        calibrate.main(argv)
+    wall = time.perf_counter() - t0
+    passes = [(ast.literal_eval(m.group(2)), int(m.group(3)), float(m.group(4)))
+              for m in map(_PASS_LINE.match, buf.getvalue().splitlines()) if m]
+    return wall, passes
+
+
+def phase_calib_unit(root, rig, device_name="cuda", points=CALIB_POINTS,
+                     passes=CALIB_PASSES):
+    """19a: calibrate geometric --unit_test on the rig: the refined rig
+    against the truth with tests/test_calib_geometric.py's bounds."""
+    import torch
+
+    from surround360_tpu_torch.calib.geometric import (
+        generate_artificial_points, perturb_rig, reprojection_errors,
+        reprojection_report, triangulate_points)
+    from surround360_tpu_torch.geometry.rig import load_rig, save_rig
+
+    os.makedirs(root, exist_ok=True)
+    rig_json = os.path.join(root, "rig.json")
+    save_rig(rig_json, rig)
+    truth = load_rig(rig_json)
+    out = os.path.join(root, "unit_refined.json")
+    on_card = device_name.startswith("cuda")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    wall, lines = _calibrate_cli([
+        "geometric", "--unit_test", "--num_points", str(points), "--pass_count",
+        str(passes), "--perturb_rotation", str(CALIB_PERTURB), "--rig_json", rig_json,
+        "--output_json", out, "--device", device_name])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    if len(lines) != passes:
+        raise AssertionError(f"calibrate printed {len(lines)} pass lines, want {passes}")
+    obs, _ = generate_artificial_points(truth, points)
+    bad = perturb_rig(truth, rotation_amount=CALIB_PERTURB)
+    before = reprojection_report(reprojection_errors(
+        bad, obs, triangulate_points(bad, obs, device_name), device_name))
+    after = lines[-1][0]
+    dot = _min_forward_dot(truth, load_rig(out))
+    iters = sum(n for _, n, _ in lines)
+    secs = sum(t for _, _, t in lines)
+    log(f"[19 geometric] calibrate geometric --unit_test on {device_name}: "
+        f"{len(rig.cameras)} cameras, {obs.num_points} points, {len(obs.cam_idx)} "
+        f"observations, {passes} passes in {wall:.3f} s (CLI; passes {secs:.3f} s): "
+        f"{secs / passes:.3f} s a pass, {iters} LM iterations, {1e3 * secs / iters:.1f} ms "
+        f"an iteration (cull, solve tries and report included); peak {peak:.3f} GiB; "
+        f"a pass (iterations, s): " + ", ".join(f"{n} {t:.3f}" for _, n, t in lines))
+    log(f"[19 geometric]   RMSE perturbed {before['rmse']:.4f} px -> refined "
+        f"{after['rmse']:.3g} px (< 0.15 x), observations kept {after['count']}; "
+        f"min forward dot vs truth {dot:.9f} (> 0.99999)")
+    if not after["rmse"] < 0.15 * before["rmse"]:
+        raise AssertionError(f"refined RMSE {after['rmse']} vs perturbed {before['rmse']}")
+    if not dot > 0.99999:
+        raise AssertionError(f"refined forward dot {dot}")
+
+
+def phase_calib_noise(rig, device_name="cuda", points=NOISE_POINTS):
+    """19b: the library with 0.5 px noise on the card and on the CPU
+    (tests/test_calib_geometric.py's noise-floor case at the rig's size)."""
+    from surround360_tpu_torch.calib.geometric import (
+        GeometricCalibrationConfig, _rig_to_params, calibrate_geometric,
+        generate_artificial_points, perturb_rig)
+
+    obs, _ = generate_artificial_points(rig, points, seed=5, noise_px=0.5)
+    bad = perturb_rig(rig, rotation_amount=0.003)
+    cfg = GeometricCalibrationConfig(passes=NOISE_PASSES)
+    rows, info = [], []
+    for dev in (device_name, "cpu"):
+        t0 = time.perf_counter()
+        refined, rep = calibrate_geometric(bad, obs, cfg, device=dev)
+        info.append(f"{dev} {time.perf_counter() - t0:.3f} s, RMSE {rep['rmse']:.4f} px")
+        if not 0.2 < rep["rmse"] < 1.5:
+            raise AssertionError(f"noise floor on {dev}: {rep}")
+        rows.append(_rig_to_params(refined))
+    rot = float(np.abs(rows[0][:, 3:6] - rows[1][:, 3:6]).max())
+    px = float(np.abs(rows[0][:, 6:9] - rows[1][:, 6:9]).max())
+    log(f"[19 geometric] library, {points} points ({len(obs.cam_idx)} observations), "
+        f"0.5 px noise, {NOISE_PASSES} passes: " + "; ".join(info)
+        + f" (0.2-1.5); card vs CPU rows: rotation {rot:.3g} rad (<= {NOISE_ROT_TOL}), "
+        f"principal and focal {px:.3g} px (<= {NOISE_PX_TOL})")
+    if rot > NOISE_ROT_TOL or px > NOISE_PX_TOL:
+        raise AssertionError(f"card vs CPU: rotation {rot}, px {px}")
+
+
+def write_colmap_db(path, ids, keypoints, matches):
+    """A COLMAP-schema sqlite file of a match graph: images (image_id =
+    rig index + 1, name '<id>.png'), keypoints (float32 x, y, scale 1,
+    orientation 0), matches (uint32 index pairs, pair_id = id1 x
+    2147483647 + id2)."""
+    image_id = {cid: i + 1 for i, cid in enumerate(ids)}
+    conn = sqlite3.connect(path)
+    try:
+        conn.executescript(
+            "CREATE TABLE images (image_id INTEGER PRIMARY KEY, camera_id INTEGER, "
+            "name TEXT); CREATE TABLE keypoints (image_id INTEGER PRIMARY KEY, rows "
+            "INTEGER, cols INTEGER, data BLOB); CREATE TABLE matches (pair_id INTEGER "
+            "PRIMARY KEY, rows INTEGER, cols INTEGER, data BLOB);")
+        for cid in ids:
+            conn.execute("INSERT INTO images VALUES (?, ?, ?)",
+                         (image_id[cid], image_id[cid], f"{cid}.png"))
+            kp = np.zeros((len(keypoints.get(cid, ())), 4), np.float32)
+            if len(kp):
+                kp[:, :2] = keypoints[cid]
+                kp[:, 2] = 1.0
+            conn.execute("INSERT INTO keypoints VALUES (?, ?, 4, ?)",
+                         (image_id[cid], len(kp), kp.tobytes()))
+        for id_a, id_b, idx in matches:
+            pair = image_id[id_a] * 2147483647 + image_id[id_b]
+            conn.execute("INSERT INTO matches VALUES (?, ?, 2, ?)",
+                         (pair, len(idx), np.asarray(idx, np.uint32).tobytes()))
+        conn.commit()
+    finally:
+        conn.close()
+
+
+def phase_calib_match(root, rig, device_name="cuda"):
+    """19c: the built-in matcher on the rig's simulator views, the library
+    gate of tests/test_matches.py on its traces, and the CLI's two routes
+    (--frames_dir, and --matches_json through a COLMAP database) agreeing."""
+    import torch
+
+    from surround360_tpu_torch.calib.geometric import (
+        GeometricCalibrationConfig, calibrate_geometric, perturb_rig,
+        reprojection_errors, reprojection_report, triangulate_points)
+    from surround360_tpu_torch.calib.matches import (
+        assemble_traces, colmap_db_to_matches_json)
+    from surround360_tpu_torch.calib.orb import detect_and_compute, to_gray8
+    from surround360_tpu_torch.capture import checker_sinusoid_environment
+    from surround360_tpu_torch.cli.calibrate import match_frames
+    from surround360_tpu_torch.cli.common import read_image_rgba, write_image
+    from surround360_tpu_torch.geometry.rig import Rig, load_rig, save_rig
+
+    width = float(rig.cameras[1].resolution[0])
+    cell = CELL_DEGREES * 2048.0 / width  # the same cells in pixels at any size
+    frames = os.path.join(root, "frames")
+    os.makedirs(frames, exist_ok=True)
+    t0 = time.perf_counter()
+    views = _render_views(rig, lambda d: calibration_environment(d, cell))
+    render_s = time.perf_counter() - t0
+    for cid, view in zip(rig.ids, views):
+        write_image(os.path.join(frames, f"{cid}.png"), view)
+    del views
+
+    # the matcher on tests/test_matches.py's sinusoid scene, one side camera
+    def sinusoids(d):
+        return (0.5 * checker_sinusoid_environment(d, sharpness=23.7)
+                + 0.3 * checker_sinusoid_environment(d, sharpness=57.1)
+                + 0.2 * checker_sinusoid_environment(d, sharpness=118.9))
+
+    side = _render_views(Rig([rig.cameras[1]], [rig.ids[1]], ["side camera"]), sinusoids)[0]
+    sinusoid_kp = len(detect_and_compute(to_gray8(side[:3], device_name))[0])
+
+    bad = perturb_rig(rig, rotation_amount=MATCH_PERTURB, principal_amount=0.0)
+    bad_json = os.path.join(root, "perturbed.json")
+    save_rig(bad_json, bad)
+    bad = load_rig(bad_json)
+    images = {cid: read_image_rgba(os.path.join(frames, f"{cid}.png")) for cid in rig.ids}
+    on_card = device_name.startswith("cuda")
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keypoints, matches = match_frames(bad, images, device_name)
+    match_s = time.perf_counter() - t0
+    del images
+    obs = assemble_traces(keypoints, matches, {cid: i for i, cid in enumerate(rig.ids)})
+    n_matches = sum(len(m[2]) for m in matches)
+    log(f"[19 geometric] matcher on {device_name}: {len(rig.cameras)} views of "
+        f"{int(width)} px rendered in {render_s:.1f} s (host, 8 threads); "
+        f"{len(matches)} camera pairs matched (overlap >= 0.05, >= 8 matches) in "
+        f"{match_s:.3f} s ({1e3 * match_s / max(len(matches), 1):.1f} ms a pair, both "
+        f"detections included), {n_matches} matches, {obs.num_points} traces, "
+        f"{len(obs.cam_idx)} observations; keypoints appended per image: "
+        + ", ".join(f"{cid} {len(kp)}" for cid, kp in keypoints.items())
+        + f"; keypoints on the sinusoid scene of tests/test_matches.py at this size "
+        f"({rig.ids[1]}): {sinusoid_kp}")
+
+    cfg = GeometricCalibrationConfig(passes=4, lm_iterations=10, outlier_factor=3.0,
+                                     lock_focal=True, lock_distortion=True,
+                                     lock_principal=True)
+    before = reprojection_report(reprojection_errors(
+        bad, obs, triangulate_points(bad, obs, device_name), device_name))
+    t0 = time.perf_counter()
+    refined, after = calibrate_geometric(bad, obs, cfg, device=device_name)
+    solve_s = time.perf_counter() - t0
+    dot = _min_forward_dot(rig, refined)
+    log(f"[19 geometric]   library (tests/test_matches.py's config) in {solve_s:.3f} s: "
+        f"median {before['median']:.3f} -> {after['median']:.4f} px (< 0.7 x), "
+        f"observations kept {after['count']}; min forward dot vs truth {dot:.7f} (> 0.999)")
+    if not after["median"] < 0.7 * before["median"] or not dot > 0.999:
+        raise AssertionError(f"matcher loop: {before} -> {after}, dot {dot}")
+
+    db = os.path.join(root, "features.db")
+    if os.path.exists(db):
+        os.remove(db)
+    write_colmap_db(db, rig.ids, keypoints, matches)
+    matches_json = os.path.join(root, "matches.json")
+    colmap_db_to_matches_json(db, matches_json)
+    out_json = os.path.join(root, "refined_json.json")
+    json_s, json_lines = _calibrate_cli([
+        "geometric", "--rig_json", bad_json, "--matches_json", matches_json,
+        "--output_json", out_json, "--device", device_name])
+    out_frames = os.path.join(root, "refined_frames.json")
+    frames_s, _ = _calibrate_cli([
+        "geometric", "--rig_json", bad_json, "--frames_dir", frames,
+        "--output_json", out_frames, "--device", device_name])
+    diff = _rig_fields_max_abs(load_rig(out_frames), load_rig(out_json))
+    log(f"[19 geometric]   CLI --frames_dir {frames_s:.3f} s (matching included); "
+        f"--matches_json from a COLMAP database {json_s:.3f} s, final "
+        f"{json_lines[-1][0]}; the two refined rigs max-abs {diff:.3g} (<= {CLI_AGREE})")
+    if diff > CLI_AGREE:
+        raise AssertionError(f"--frames_dir vs --matches_json: {diff}")
+
+
+def write_vignetting_sweep(dest, size=SWEEP_SIZE, grid=SWEEP_GRID, seed=0):
+    """grid x grid 16-bit grey PNGs of a bright grey square on a dim
+    background under the separable Bezier rolloff ROLLOFF_X x ROLLOFF_Y,
+    with noise. Returns (target centres (N, 2), the planes as the CLI
+    reads them)."""
+    from surround360_tpu_torch.cli.common import write_png
+    from surround360_tpu_torch.utils.math_util import bezier_curve_batch
+
+    os.makedirs(dest, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(size) / size
+    rolloff = np.outer(bezier_curve_batch(np.asarray(ROLLOFF_Y), t),
+                       bezier_curve_batch(np.asarray(ROLLOFF_X), t))
+    margin = size // 20
+    pos = np.rint(np.linspace(margin, size - 1 - margin, grid)).astype(int)
+    centres = [(x, y) for y in pos for x in pos]
+    planes = []
+
+    def one(k):
+        x, y = centres[k]
+        img = np.full((size, size), 0.05)
+        img[y - SWEEP_HALF : y + SWEEP_HALF + 1, x - SWEEP_HALF : x + SWEEP_HALF + 1] += SWEEP_TARGET
+        img = img * rolloff + rng_k[k].standard_normal((size, size)) * SWEEP_NOISE
+        u16 = np.clip(np.rint(img * 65535.0), 0, 65535).astype(np.uint16)
+        write_png(os.path.join(dest, f"{k:03d}.png"), u16[..., None])
+        return u16.astype(np.float32) / 65535.0
+
+    rng_k = [np.random.default_rng(s) for s in rng.integers(0, 2**31, len(centres))]
+    with ThreadPoolExecutor(8) as pool:
+        planes = list(pool.map(one, range(len(centres))))
+    return np.asarray(centres, np.float64), planes
+
+
+def phase_vignetting(root, device_name="cuda", size=SWEEP_SIZE, grid=SWEEP_GRID):
+    """20: a vignetting sweep through the library on the card and the CPU
+    (seconds), then calibrate vignetting on both: locations at the targets,
+    gain x surface flat, the card's ISP JSON equal to the CPU's."""
+    import torch
+
+    from surround360_tpu_torch.calib.vignetting import (
+        acquire_vignetting_samples, fit_vignetting)
+    from surround360_tpu_torch.cli import calibrate
+    from surround360_tpu_torch.utils.math_util import bezier_curve_batch
+
+    sweep = os.path.join(root, "sweep")
+    shutil.rmtree(sweep, ignore_errors=True)
+    t0 = time.perf_counter()
+    truth, planes = write_vignetting_sweep(sweep, size, grid)
+    write_s = time.perf_counter() - t0
+    info = []
+    for dev in (device_name, "cpu"):
+        t0 = time.perf_counter()
+        locs, intensities = acquire_vignetting_samples(planes, device=dev)
+        acq_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fit = fit_vignetting(locs, intensities, (size, size), device=dev)
+        fit_s = time.perf_counter() - t0
+        off = float(np.abs(locs - truth).max())
+        ts = np.linspace(0.0, (size - 1) / size, 33)
+        flat = max(float(np.std(p) / np.mean(p)) for p in (
+            bezier_curve_batch(fit.rolloff_h[:, c], ts) * bezier_curve_batch(fit.bezier_x[c], ts)
+            for c in range(3)))
+        info.append(f"{dev}: acquisition {1e3 * acq_s / len(planes):.2f} ms a frame, fit "
+                    f"{fit_s:.3f} s, rms residual {fit.rms_residual:.2e}, locations off the "
+                    f"targets by <= {off:g} px, gain x surface spread {flat:.2e}")
+        if off > 1 or flat >= 0.01:
+            raise AssertionError(f"vignetting on {dev}: locations off by {off}, spread {flat}")
+    del planes
+    rolloffs = []
+    for dev in (device_name, "cpu"):
+        out = os.path.join(root, f"isp_{dev.split(':')[0]}.json")
+        t0 = time.perf_counter()
+        calibrate.main(["vignetting", "--sweep_dir", sweep, "--output_isp_json", out,
+                        "--device", dev])
+        info.append(f"CLI on {dev} {time.perf_counter() - t0:.3f} s")
+        with open(out) as f:
+            isp = json.load(f)["CameraIsp"]
+        rolloffs.append(np.asarray([isp["vignetteRollOffH"], isp["vignetteRollOffV"]]))
+    diff = float(np.abs(rolloffs[0] - rolloffs[1]).max())
+    log(f"[20 vignetting] {len(truth)} frames {size}x{size} 16-bit written in {write_s:.1f} s; "
+        + "; ".join(info) + f"; the card's ISP JSON rolloff vs the CPU's max-abs {diff:.3g} "
+        f"(<= {ROLLOFF_CPU_TOL})")
+    if diff > ROLLOFF_CPU_TOL:
+        raise AssertionError(f"ISP JSON rolloff card vs CPU: {diff}")
+
+
 def _probe_cases(rng, device):
     """(site, variant, inputs, kernel call, twin, tolerance, scale floor)
     for every K4 and K5 variant, at the smaller grid of the pair that the
@@ -1867,6 +2273,22 @@ def main():
     rec_dir = phase_capture(root)
     card_dir, cpu_dir = phase_preview(root, rec_dir)
     phase_compare(card_dir, cpu_dir)
+    # calibration (phases 19-20) runs no hand kernel: the counts stay 0
+    from surround360_tpu_torch.benchmarks import probe_common as pc
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    fw.reset_launch_counts()
+    pc.reset_launch_counts()
+    calib_root = os.path.join(WORK, "calib")
+    phase_calib_unit(calib_root, rig)
+    phase_calib_noise(rig)
+    phase_calib_match(calib_root, rig)
+    phase_vignetting(calib_root)
+    calib_launches = {k: fw.launch_count(k) for k in fw.KERNELS}
+    calib_launches["K4, K5"] = pc.launch_count()
+    log(f"[20 vignetting] kernel launches in phases 19-20: {calib_launches}")
+    if any(calib_launches.values()):
+        raise AssertionError(f"calibration launched a sampler kernel: {calib_launches}")
     shutil.rmtree(WORK, ignore_errors=True)
     if small_failed or probe_failed:
         raise AssertionError(f"phase 3 or 14 failed: {small_failed + probe_failed}")

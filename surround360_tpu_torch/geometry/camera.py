@@ -16,6 +16,13 @@ float64 warp tables come out bit-identical.
 - distortion: distort(r) = r + d0 r^3 + d1 r^5 (Camera.h:219-227); inverse
   by fixed-iteration Newton (Camera.h:229-248).
 - fov gating via fov_threshold = cos(fov)|cos(fov)| (Camera.cpp:144-167).
+- rotations as angle-axis for calibration (Camera.cpp:114-133), and
+  ray midpoints for triangulation (Camera.cpp:169-226).
+
+One function takes torch tensors: :func:`rotation_from_angle_axis_torch`,
+the Rodrigues formula of the bundle adjuster (``calib/geometric.py``),
+whose forward-mode derivative stays finite at angle 0 (the reference's
+goes NaN there; ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 NEAR_INFINITY = 1.0e6  # Camera.cpp:14 kNearInfinity
 FTHETA = 0
@@ -273,6 +281,154 @@ def approximate_usable_pixels_radius(cam: Camera) -> float:
     pix = world_to_pixel(cam, np.asarray(cam.position) + direction)
     d = np.linalg.norm(pix - np.asarray(cam.resolution) / 2.0, axis=-1)
     return float(min(np.linalg.norm(np.asarray(cam.resolution)), d.min()))
+
+
+def overlap(cam: Camera, other: Camera, probe_count: int = 10) -> float:
+    """Fraction of cam's frame visible from ``other``, probed on a
+    probe_count x probe_count grid (Camera.h:184-198)."""
+    ij = np.stack(
+        np.meshgrid(np.arange(probe_count), np.arange(probe_count)), axis=-1
+    ).reshape(-1, 2).astype(np.float64)
+    pix = ij / (probe_count - 1) * np.asarray(cam.resolution)
+    pts = pixel_to_rig_near_infinity(cam, pix)
+    return float(np.mean(np.asarray(sees(other, pts))))
+
+
+def rotation_from_angle_axis(angle_axis):
+    """Rodrigues formula (Camera.cpp:114-133), (..., 3) -> (..., 3, 3)."""
+    angle_axis = np.asarray(angle_axis)
+    angle = np.sqrt(np.sum(angle_axis * angle_axis, axis=-1))
+    safe_angle = np.where(angle < 1e-12, 1.0, angle)
+    axis = angle_axis / safe_angle[..., None]
+    return _rodrigues(axis, np.cos(angle), np.sin(angle), np.stack)
+
+
+def _rodrigues(axis, c, s, stack):
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    C = 1.0 - c
+    return stack(
+        [
+            stack([c + x * x * C, x * y * C - z * s, x * z * C + y * s], -1),
+            stack([y * x * C + z * s, c + y * y * C, y * z * C - x * s], -1),
+            stack([z * x * C - y * s, z * y * C + x * s, c + z * z * C], -1),
+        ],
+        -2,
+    )
+
+
+# below this squared angle the rotation is I + K + K^2 / 2 (K the skew
+# matrix of the angle-axis): its error, ~angle^3 / 6, is below float64's
+# resolution of the full formula there
+_SERIES_ANGLE_SQ = 1e-10
+
+
+def rotation_from_angle_axis_torch(angle_axis: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula on torch tensors, (..., 3) -> (..., 3, 3), with a
+    forward-mode derivative that is finite at angle 0.
+
+    The reference guards the value (``where(angle < 1e-12, 1, angle)``)
+    but takes the square root's derivative at 0 first, so its Jacobian is
+    NaN for a camera whose angle-axis is exactly 0. Here the square root
+    sees a squared norm that is replaced by 1 below a small angle (a
+    double ``where``), and the second-order series takes over there;
+    above it the formula is the reference's."""
+    sq = torch.sum(angle_axis * angle_axis, dim=-1)
+    small = sq < _SERIES_ANGLE_SQ
+    angle = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    full = _rodrigues(
+        angle_axis / angle[..., None], torch.cos(angle), torch.sin(angle),
+        torch.stack,
+    )
+    x, y, z = angle_axis[..., 0], angle_axis[..., 1], angle_axis[..., 2]
+    zero = torch.zeros_like(x)
+    K = torch.stack(
+        [
+            torch.stack([zero, -z, y], -1),
+            torch.stack([z, zero, -x], -1),
+            torch.stack([-y, x, zero], -1),
+        ],
+        -2,
+    )
+    eye = torch.eye(3, dtype=angle_axis.dtype, device=angle_axis.device)
+    series = eye + K + 0.5 * (K @ K)
+    return torch.where(small[..., None, None], series, full)
+
+
+def angle_axis_from_rotation(rotation):
+    """Inverse of :func:`rotation_from_angle_axis` (principal branch, angle
+    in [0, pi]) by Shepperd's quaternion method, branchless, so it is
+    well-conditioned at angle -> 0 and angle -> pi (the rig's 180-degree
+    cameras)."""
+    R = np.asarray(rotation)
+    r00, r01, r02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    r10, r11, r12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    r20, r21, r22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = r00 + r11 + r22
+
+    def quat(diag, i):
+        # the quaternion (w, x, y, z) from the candidate whose
+        # 1 + diag term is largest; component i is 0.25 * s
+        s = np.sqrt(np.maximum(1.0 + diag, 1e-20)) * 2.0
+        off = {
+            0: [(r21 - r12), (r02 - r20), (r10 - r01)],
+            1: [(r21 - r12), (r01 + r10), (r02 + r20)],
+            2: [(r02 - r20), (r01 + r10), (r12 + r21)],
+            3: [(r10 - r01), (r02 + r20), (r12 + r21)],
+        }[i]
+        comps = [o / s for o in off]
+        comps.insert(i, 0.25 * s)
+        return np.stack(comps, -1)
+
+    best = np.argmax(np.stack([tr, r00, r11, r22], -1), axis=-1)[..., None]
+    q = np.where(
+        best == 0,
+        quat(tr, 0),
+        np.where(
+            best == 1,
+            quat(r00 - r11 - r22, 1),
+            np.where(best == 2, quat(r11 - r00 - r22, 2), quat(r22 - r00 - r11, 3)),
+        ),
+    )
+    q = q / np.sqrt(np.sum(q * q, axis=-1, keepdims=True))
+    w = q[..., 0]
+    v = q[..., 1:]
+    vnorm = np.sqrt(np.sum(v * v, axis=-1))
+    angle = 2.0 * np.arctan2(vnorm, np.abs(w))
+    sign = np.where(w < 0, -1.0, 1.0)
+    safe = np.where(vnorm < 1e-20, 1.0, vnorm)
+    # angle -> 0 limit: aa = 2 v (since v ~ axis * angle / 2)
+    scale = np.where(vnorm < 1e-20, 2.0, angle / safe)
+    return v * (sign * scale)[..., None]
+
+
+def ray_midpoint(origin_a, dir_a, origin_b, dir_b, force_in_front=False):
+    """Midpoint of the closest approach of two rays, (..., 3) each; parallel
+    rays (or, with ``force_in_front``, a point behind either camera)
+    degenerate to kNearInfinity along both rays, as the reference's
+    midpoint() (Camera.cpp:169-226)."""
+    origin_a, dir_a = np.asarray(origin_a), np.asarray(dir_a)
+    origin_b, dir_b = np.asarray(origin_b), np.asarray(dir_b)
+
+    def cross2(a, b):
+        return -a[..., 1] * b[..., 0] + a[..., 0] * b[..., 1]
+
+    # project onto the 2D basis spanned by the two directions
+    fa = np.stack([np.sum(dir_a * dir_a, -1), np.sum(dir_b * dir_a, -1)], -1)
+    fb = np.stack([np.sum(dir_a * dir_b, -1), np.sum(dir_b * dir_b, -1)], -1)
+    diff = origin_a - origin_b
+    fc = np.stack([np.sum(dir_a * diff, -1), np.sum(dir_b * diff, -1)], -1)
+    det = cross2(fa, fb)
+    safe_det = np.where(np.abs(det) < 1e-30, 1.0, det)
+    ta = cross2(fb, fc) / safe_det
+    tb = cross2(fa, fc) / safe_det
+    degenerate = np.abs(det) < 1e-30
+    if force_in_front:
+        degenerate = degenerate | (ta < 0) | (tb < 0)
+    ta = np.where(degenerate, NEAR_INFINITY, ta)
+    tb = np.where(degenerate, NEAR_INFINITY, tb)
+    pa = origin_a + ta[..., None] * dir_a
+    pb = origin_b + tb[..., None] * dir_b
+    return (pa + pb) / 2.0
 
 
 def camera_from_json(obj: dict) -> tuple[Camera, str, str]:

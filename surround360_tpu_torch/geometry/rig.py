@@ -3,7 +3,8 @@
 Port of ``surround360_tpu/geometry/rig.py`` (reference:
 surround360_render/source/render/RigDescription.{h,cpp}) plus the same
 parametric ring-rig generator, so tests and the capture simulator need no
-checked-in data.
+checked-in data. ``stack_cameras`` turns a list of cameras into one
+Camera whose fields carry a leading camera axis.
 """
 
 from __future__ import annotations
@@ -22,6 +23,14 @@ from .camera import (
     create_rescaled_camera,
     make_camera,
 )
+
+
+def stack_cameras(cams: list[Camera], dtype=None) -> Camera:
+    """Stack N cameras into one Camera with a leading dim N per field."""
+    return Camera(*(
+        np.stack([np.asarray(getattr(c, f), dtype=dtype) for c in cams])
+        for f in Camera._fields
+    ))
 
 
 @dataclass
@@ -94,6 +103,12 @@ class Rig:
     @property
     def ring_radius(self) -> float:
         return float(np.linalg.norm(np.asarray(self.side_cameras[0].position)))
+
+    def camera_by_id(self, cam_id: str) -> Camera:
+        return self.cameras[self.ids.index(cam_id)]
+
+    def stacked_side_cameras(self) -> Camera:
+        return stack_cameras(self.side_cameras)
 
     def rescaled(self, scale: float) -> "Rig":
         """Every camera rescaled (createRescaledCamera, Camera.cpp:273-289)."""

@@ -1,19 +1,32 @@
 """Math helpers (port of the renderer's and the ISP's use of
 ``surround360_tpu/utils/math_util.py``; reference:
 surround360_render/source/util/MathUtil.h). :func:`ramp` takes torch
-tensors; the Bezier curves are host precompute on numpy arrays."""
+tensors, as does :func:`median`; the Bezier curves are host precompute
+on numpy arrays."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["ramp", "lerp", "bezier_curve", "bezier_curve_batch"]
+__all__ = ["ramp", "lerp", "bezier_curve", "bezier_curve_batch", "median"]
 
 
 def ramp(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """0 below lo, 1 above hi, linear in between (MathUtil.h: rampf)."""
     return torch.clamp((x - lo) / (hi - lo), 0.0, 1.0)
+
+
+def median(x: torch.Tensor) -> float:
+    """np.median of all of ``x``: the mean of the two middle values of an
+    even count (``torch.median`` returns the lower one); NaN when empty."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    if n == 0:
+        return float("nan")
+    if n % 2:
+        return float(s[n // 2])
+    return float((s[n // 2 - 1].double() + s[n // 2].double()) / 2)
 
 
 def lerp(a, b, t):

@@ -1,0 +1,90 @@
+"""Calibration on the card against the same calls on the CPU: the bundle
+adjuster, its residuals and Jacobians, the ORB matcher and the vignetting
+sweep. Every case needs CUDA and skips elsewhere; the file imports no JAX,
+so it runs on the card's machine (README: the GPU pytest command)."""
+
+import numpy as np
+import pytest
+import torch
+
+from surround360_tpu_torch.calib import geometric as G
+from surround360_tpu_torch.calib.orb import detect_and_compute, orb_match, to_gray8
+from surround360_tpu_torch.calib.vignetting import acquire_vignetting_samples, fit_vignetting
+from surround360_tpu_torch.geometry.rig import make_ring_rig
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _small_rig():
+    return make_ring_rig(num_side_cameras=6, side_fov_degrees=120.0)
+
+
+@pytest.mark.gpu
+def test_bundle_adjustment_card_matches_cpu():
+    """Rows within 1e-6 rad and 1e-4 px, the same observations kept; the
+    residuals and Jacobians of the first iterate within 1e-9."""
+    _cuda()
+    rig = _small_rig()
+    obs, _ = G.generate_artificial_points(rig, 400, seed=5, noise_px=0.5)
+    bad = G.perturb_rig(rig, rotation_amount=0.003)
+    jac = []
+    for dev in ("cuda", "cpu"):
+        data = G._Observations(bad, obs, torch.device(dev))
+        params = torch.as_tensor(G._rig_to_params(bad), device=dev)
+        jac.append([x.cpu().numpy() for x in data.res_and_jac(
+            params, G.triangulate_points(bad, obs, dev))])
+    for a, b in zip(*jac):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+    cfg = G.GeometricCalibrationConfig(passes=2, lm_iterations=8)
+    card, card_rep = G.calibrate_geometric(bad, obs, cfg, device="cuda")
+    cpu, cpu_rep = G.calibrate_geometric(bad, obs, cfg, device="cpu")
+    assert max(np.abs(c.rotation - p.rotation).max()
+               for c, p in zip(card.cameras, cpu.cameras)) <= 1e-6
+    a, b = G._rig_to_params(card), G._rig_to_params(cpu)
+    assert np.abs(a[:, 6:9] - b[:, 6:9]).max() <= 1e-4
+    assert card_rep["count"] == cpu_rep["count"]
+
+
+def _texture():
+    from scipy.ndimage import gaussian_filter
+
+    base = gaussian_filter(np.random.default_rng(0).random((300, 400)), 1.5)
+    base = (base - base.min()) / (base.max() - base.min())
+    return base[:, 20:320].astype(np.float32), base[:, 10:310].astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_orb_card_matches_cpu():
+    """The shifted-texture case on the card, and the card's keypoints the
+    CPU's (rounding in the pyramid may move a few)."""
+    _cuda()
+    a, b = _texture()
+    pts_a, pts_b = orb_match(a[None], b[None], device="cuda")
+    assert len(pts_a) > 20
+    assert abs(np.median(pts_b[:, 0] - pts_a[:, 0]) - 10.0) < 1.0
+    card = {tuple(p) for p in detect_and_compute(to_gray8(a, "cuda"))[0].cpu().numpy()}
+    cpu = {tuple(p) for p in detect_and_compute(to_gray8(a, "cpu"))[0].numpy()}
+    assert len(card & cpu) >= 0.95 * max(len(card), len(cpu))
+
+
+@pytest.mark.gpu
+def test_vignetting_card_matches_cpu():
+    _cuda()
+    rng = np.random.default_rng(3)
+    n = 256
+    yy, xx = np.mgrid[:n, :n]
+    imgs = []
+    for cx in (40, 90, 140, 200):
+        for cy in (40, 100, 160, 215):
+            img = 0.2 + 0.01 * rng.standard_normal((n, n))
+            img[(abs(xx - cx) <= 12) & (abs(yy - cy) <= 12)] += 0.6 * (1 - 0.3 * (cx / n - 0.5) ** 2)
+            imgs.append(img.astype(np.float32))
+    out = [acquire_vignetting_samples(imgs, device=d) for d in ("cuda", "cpu")]
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_allclose(out[0][1], out[1][1], rtol=0, atol=1e-7)
+    fits = [fit_vignetting(*out[1], (n, n), device=d) for d in ("cuda", "cpu")]
+    np.testing.assert_allclose(fits[0].rolloff_h, fits[1].rolloff_h, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(fits[0].rolloff_v, fits[1].rolloff_v, rtol=0, atol=1e-6)

@@ -4,9 +4,8 @@ functions the port has. Where a case computes numbers, the port's are
 also held to the JAX package's on the same inputs (host float64 in both:
 equal up to the last bits).
 
-Left out, with the functions the port does not have yet (ROADMAP A14):
-``overlap``, ``stack_cameras``, the angle-axis rotations, ``ray_midpoint``
-and ``to_device``.
+Left out: ``to_device`` and the ``jax.vmap`` over stacked cameras (JAX
+only); ``stack_cameras`` is held by a loop over the stacked fields instead.
 """
 
 import numpy as np
@@ -28,7 +27,12 @@ from surround360_tpu_torch.geometry import (
     sees,
     world_to_pixel,
 )
-from surround360_tpu_torch.geometry.rig import load_rig, make_ring_rig, save_rig
+from surround360_tpu_torch.geometry.rig import (
+    load_rig,
+    make_ring_rig,
+    save_rig,
+    stack_cameras,
+)
 
 
 def _random_ftheta(mod, seed=0, distortion=(0.0, 0.0)):
@@ -173,3 +177,88 @@ def test_rescaled_projection_scales():
     pt = np.asarray(cam.position) + np.asarray(cam.forward) * 2 + np.array([0.1, 0.2, -0.1])
     np.testing.assert_allclose(world_to_pixel(half, pt), world_to_pixel(cam, pt) * 0.5,
                                rtol=1e-9)
+
+
+def test_adjacent_side_cameras_overlap():
+    rig = make_ring_rig()
+    sides = rig.side_cameras
+    ov = TC.overlap(sides[0], sides[1])
+    assert ov > 0.2, f"adjacent side cameras should overlap, got {ov}"
+    assert TC.overlap(sides[0], sides[7]) == 0.0
+    jsides = jax_rig().side_cameras
+    assert ov == JC.overlap(jsides[0], jsides[1])
+
+
+def test_stacked_cameras_project_as_each():
+    rig = make_ring_rig()
+    stacked = stack_cameras(rig.side_cameras)
+    assert stacked.rotation.shape == (14, 3, 3)
+    pts = np.array([100.0, 30.0, 5.0])
+    for i, cam in enumerate(rig.side_cameras):
+        one = Camera(*(f[i] for f in stacked))
+        np.testing.assert_array_equal(world_to_pixel(one, pts), world_to_pixel(cam, pts))
+    assert rig.camera_by_id("cam3") is rig.cameras[3]
+    side = rig.stacked_side_cameras()
+    for f in Camera._fields:
+        np.testing.assert_array_equal(getattr(side, f), getattr(stacked, f))
+
+
+def test_angle_axis_roundtrip():
+    rng = np.random.default_rng(10)
+    for _ in range(10):
+        aa = rng.normal(size=3)
+        rot = TC.rotation_from_angle_axis(aa)
+        aa2 = TC.angle_axis_from_rotation(rot)
+        np.testing.assert_allclose(rot, TC.rotation_from_angle_axis(aa2), atol=1e-10)
+        # host float64 in both packages: the same bits
+        np.testing.assert_array_equal(rot, JC.rotation_from_angle_axis(aa, xp=np))
+        np.testing.assert_array_equal(aa2, JC.angle_axis_from_rotation(rot, xp=np))
+
+
+def test_angle_axis_at_zero_and_pi():
+    """The ring rig's cameras include angle 0 (cam15) and pi (cam0, cam16):
+    both packages return the same angle-axis there, and it round-trips."""
+    for cam in make_ring_rig().cameras:
+        aa = TC.angle_axis_from_rotation(cam.rotation)
+        np.testing.assert_array_equal(aa, JC.angle_axis_from_rotation(cam.rotation, xp=np))
+        np.testing.assert_allclose(TC.rotation_from_angle_axis(aa), cam.rotation, atol=1e-12)
+
+
+def test_torch_rodrigues_matches_and_is_differentiable_at_zero():
+    """The solver's torch Rodrigues equals the host one away from 0, and its
+    forward-mode Jacobian at 0 is finite: the skew generators."""
+    import torch
+
+    rng = np.random.default_rng(13)
+    aa = np.concatenate([rng.normal(size=(20, 3)), rng.normal(size=(5, 3)) * 1e-7,
+                         np.zeros((1, 3))])
+    got = TC.rotation_from_angle_axis_torch(torch.as_tensor(aa)).numpy()
+    np.testing.assert_allclose(got, TC.rotation_from_angle_axis(aa), rtol=0, atol=1e-15)
+    J = torch.func.jacfwd(TC.rotation_from_angle_axis_torch)(
+        torch.zeros(3, dtype=torch.float64)).numpy()
+    skew = np.zeros((3, 3, 3))
+    skew[2, 1, 0], skew[1, 2, 0] = 1, -1  # d/dx
+    skew[0, 2, 1], skew[2, 0, 1] = 1, -1  # d/dy
+    skew[1, 0, 2], skew[0, 1, 2] = 1, -1  # d/dz
+    np.testing.assert_array_equal(J, skew)
+
+
+def test_projection_survives_rotation_roundtrip():
+    cam = _random_ftheta(TC, 11)
+    rot = TC.rotation_from_angle_axis(TC.angle_axis_from_rotation(cam.rotation))
+    cam2 = cam._replace(rotation=rot)
+    pt = (np.asarray(cam.position) + 3.1 * np.asarray(cam.forward)
+          + np.array([0.5, -0.2, 0.1]))
+    np.testing.assert_allclose(world_to_pixel(cam, pt), world_to_pixel(cam2, pt), atol=1e-6)
+
+
+@pytest.mark.parametrize("case", [
+    ([11, 12, -17], [-1, -1, 2], [-8, -4, 0], [3, 2, 1], [1, 2, 3], 1e-9),  # intersecting
+    ([2, 2, 2], [-1, -1, 0], [0, 2, 0], [1, -1, 0], [1, 1, 1], 1e-9),  # skew
+    ([2, 2, 2], [1, 2, 3], [1, 2, 3], [-1, -2, -3], [1.5, 2, 2.5], 1e-6),  # parallel
+])
+def test_ray_midpoint(case):
+    oa, da, ob, db, expect, atol = case
+    m = TC.ray_midpoint(oa, da, ob, db)
+    np.testing.assert_allclose(m, expect, atol=atol)
+    np.testing.assert_array_equal(m, JC.ray_midpoint(oa, da, ob, db))

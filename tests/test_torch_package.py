@@ -49,6 +49,13 @@ SLICE_MODULES = [
     "surround360_tpu_torch.cli.raw2rgb",
     "surround360_tpu_torch.cli.dng_helper",
     "surround360_tpu_torch.cli.run_all",
+    "surround360_tpu_torch.cli.calibrate",
+    "surround360_tpu_torch.calib",
+    "surround360_tpu_torch.calib.geometric",
+    "surround360_tpu_torch.calib.orb",
+    "surround360_tpu_torch.calib.orb_pattern",
+    "surround360_tpu_torch.calib.matches",
+    "surround360_tpu_torch.calib.vignetting",
     "surround360_tpu_torch.benchmarks",
     "surround360_tpu_torch.benchmarks.probe_common",
     "surround360_tpu_torch.benchmarks.kernel_step_cost",
