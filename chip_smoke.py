@@ -1,14 +1,14 @@
 """Smoke run of surround360_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, 10 to 13 minutes
+    python3 chip_smoke.py            # every phase, 9 to 15 minutes
     python3 chip_smoke.py --quick    # phases 1-3, the probes against their
                                      # twins and the product path's kernel
                                      # sites on random inputs, ~40 s
 
 Phases (each prints its lines; any failure exits non-zero before the
 kernels line; a phase-3 or phase-14 mismatch is printed at once and fails
-the run after phase 13, so that the measurements still print). Phases 14
-and 15 run after phase 9, while phase 4's context is alive:
+the run after phase 13, so that the measurements still print). Phases 14,
+15 and 22 run after phase 9, while phase 4's context is alive:
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off (the reference is float32).
@@ -140,6 +140,27 @@ and 15 run after phase 9, while phase 4's context is alive:
    library on the card and the CPU (acquisition ms a frame, fit seconds;
    locations within 1 px of the targets, gain x surface flat within 1%),
    then calibrate vignetting on both: ISP JSON rolloff equal within 1e-6.
+21. color: 17 MacBeth charts of 2048x2048 as 16-bit PNGs, rendered on the
+   host without OpenCV (render_chart: tests/test_calib_color.py's chart at
+   1.5x its geometry, each camera its own rotation in -7..7 degrees,
+   perspective up to 0.04, the vignette, noise 0.01), their colours raw as
+   TestColorSolve makes them (a known black level, colour matrix and
+   falloff). The library on the card and the CPU: detection ms a camera
+   (pixel stages, components, contours), solve seconds; 24 patches within
+   5 px of the truth, black level within 0.02, WB x CCM grey to grey within
+   0.02, the corrected medians' mean DeltaE. Then calibrate color on both:
+   seconds, the card's ISP JSONs equal to the CPU's within 1e-9; peak
+   memory; one chart at 1.0x (where the reference also returns the chart's
+   outline): 24 patches and a solve. Phases 19-21 launch no kernel.
+22. mesh (run right after phase 15, on phase 4's 6k context and inputs):
+   parallel/mesh.py's sharded_render_step, temporal, on make_render_mesh()
+   over the visible cards (2 frames), on the card repeated 14 times at
+   (data 2, ring 7) (4 frames, two steps chained through the returned
+   states) and at (data 1, ring 14) (2 frames); every frame within 1e-4 of
+   a sequential render_frame chain (each data shard's chain continued by
+   the second step); s a frame of each mesh and of the chain, peak memory,
+   K1 and K3 launches of each mesh run (K1 must launch). One card: no
+   multi-GPU rate is measured.
 
 Then the kernels' JSON line (K1-K3 and the four probe sites), the card's
 name and power limit, and last
@@ -243,6 +264,19 @@ SWEEP_HALF = 12  # the target is a (2 x 12 + 1) px square
 ROLLOFF_X = (0.55, 0.95, 1.1, 0.95, 0.6)  # the sweep's separable Bezier rolloff
 ROLLOFF_Y = (0.6, 1.0, 1.05, 0.9, 0.5)
 ROLLOFF_CPU_TOL = 1e-6  # the card's ISP JSON rolloff vs the CPU's
+CHART_SIZE = 2048  # phase 21: a rig camera's frame
+CHART_SCALE = 1.5  # the chart's geometry x 1.5: 54 px patches, 15 px separators
+CHART_CAMERAS = 17
+CHART_NOISE = 0.01
+CHART_PERSPECTIVE = 0.04  # the largest of the cameras' perspectives
+CHART_BL = (0.04, 0.05, 0.06)  # TestColorSolve's black level and colour matrix
+CHART_M = ((1.6, -0.3, -0.1), (-0.2, 1.5, -0.2), (-0.1, -0.4, 1.8))
+CHART_CENT_TOL = 5.0  # px (tests/test_calib_color.py's combined fixture)
+BL_TOL = 0.02  # recovered black level vs the truth (TestColorSolve)
+GREY_TOL = 0.02  # WB x CCM maps grey to grey (TestColorSolve)
+COLOR_CPU_TOL = 1e-9  # the card's ISP JSONs vs the CPU's (black level / full scale)
+MESH_FRAMES = 4  # phase 22: (data 2, ring 7) renders 2 chunks of 2 frames
+MESH_TOL = 1e-4  # mesh vs the sequential chain (the reference's dryrun_multichip bound)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_cli")  # gitignored; removed at the end
 
@@ -1831,6 +1865,274 @@ def phase_vignetting(root, device_name="cuda", size=SWEEP_SIZE, grid=SWEEP_GRID)
         raise AssertionError(f"ISP JSON rolloff card vs CPU: {diff}")
 
 
+def lab_to_rgb(lab, illuminant="D50"):
+    """Linear RGB of CIELAB values: the inverse of calib.color.rgb_to_lab
+    (tests/test_calib_color.py's)."""
+    from surround360_tpu_torch.calib.color import _RGB2XYZ, _WHITE
+
+    lab = np.asarray(lab, dtype=np.float64)
+    y = (lab[..., 0] + 16.0) / 116.0
+    x = lab[..., 1] / 500.0 + y
+    z = y - lab[..., 2] / 200.0
+    f = np.stack([x, y, z], axis=-1)
+    t = np.where(f**3 > 0.008856, f**3, (f - 16.0 / 116.0) / 7.787)
+    m = _RGB2XYZ[illuminant] / _WHITE[illuminant][:, None]
+    return t @ np.linalg.inv(m).T
+
+
+def chart_raw_colors(illuminant="D50"):
+    """The 24 patches' raw colours as TestColorSolve._make_observations makes
+    them: bl + (1 - bl) M^-1 rgb / s, with its M, its black level and a
+    quadratic falloff s over the chart's columns and rows."""
+    from surround360_tpu_torch.calib.color import LAB_MACBETH
+
+    rgb = lab_to_rgb(LAB_MACBETH[illuminant], illuminant)
+    bl = np.asarray(CHART_BL)
+    u = np.tile(np.arange(6) / 5.0, 4)
+    v = np.repeat(np.arange(4) / 3.0, 6)
+    s = 1.0 - 0.15 * u * u - 0.1 * v * v
+    return bl + (1.0 - bl) * (rgb @ np.linalg.inv(np.asarray(CHART_M)).T) / s[:, None]
+
+
+def _homography(src, dst):
+    """The 3 x 3 map of four points onto four (getPerspectiveTransform)."""
+    a, b = [], []
+    for (x, y), (u, v) in zip(src, dst):
+        a.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+        a.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+        b += [u, v]
+    return np.append(np.linalg.solve(np.asarray(a, float), np.asarray(b, float)), 1).reshape(3, 3)
+
+
+def render_chart(colors, size=CHART_SIZE, scale=CHART_SCALE, rotation_deg=0.0,
+                 perspective=0.0, noise=0.0, vignette=False, seed=4):
+    """tests/test_calib_color.py's chart without OpenCV: the 24 colours on a
+    0.02 frame over a 0.35 surround, its geometry (36 px patches, 10 px
+    separators) times ``scale``, centred in a size x size frame, rotated
+    about the centre, then the fixture's perspective, bilinear
+    (torch.grid_sample on the host); then the radial vignette and the noise.
+    Returns ((3, H, W) float32, the patch centres (24, 2) after the warps)."""
+    import torch
+
+    H = W = size
+    rng = np.random.default_rng(seed)
+    img = np.full((H, W, 3), 0.35, np.float32)
+    pw, gap = round(36 * scale), round(10 * scale)
+    cw, ch = 6 * pw + 7 * gap, 4 * pw + 5 * gap
+    x0, y0 = (W - cw) // 2, (H - ch) // 2
+    img[y0:y0 + ch, x0:x0 + cw] = 0.02
+    truth = []
+    for r in range(4):
+        for c in range(6):
+            x, y = x0 + gap + c * (pw + gap), y0 + gap + r * (pw + gap)
+            img[y:y + pw, x:x + pw] = colors[r * 6 + c]
+            truth.append([x + pw / 2, y + pw / 2])
+    a = np.radians(rotation_deg)
+    al, be, cx, cy = np.cos(a), np.sin(a), W / 2, H / 2
+    A = np.array([[al, be, (1 - al) * cx - be * cy], [-be, al, be * cx + (1 - al) * cy],
+                  [0, 0, 1]])
+    sq = np.array([[0, 0], [W, 0], [W, H], [0, H]], float)
+    p = perspective
+    P = _homography(sq, sq + [[p * W, 0], [-p * W, p * H * 0.3], [p * W, 0], [-p * W, 0]])
+    Hm = P @ A
+    t = np.concatenate([np.asarray(truth), np.ones((24, 1))], axis=1) @ Hm.T
+    truth = t[:, :2] / t[:, 2:]
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    src = np.stack([xx, yy, np.ones_like(xx)], axis=-1) @ np.linalg.inv(Hm).T
+    sx, sy = src[..., 0] / src[..., 2], src[..., 1] / src[..., 2]
+    grid = torch.from_numpy(np.stack([2 * sx / (W - 1) - 1, 2 * sy / (H - 1) - 1],
+                                     axis=-1)[None].astype(np.float32))
+    chw = torch.from_numpy(np.moveaxis(img, -1, 0) - np.float32(0.35))[None]
+    out = torch.nn.functional.grid_sample(chw, grid, align_corners=True)[0].numpy() + 0.35
+    if vignette:
+        rad = ((xx - W / 2) ** 2 + (yy - H / 2) ** 2) / (W / 2) ** 2
+        out = out * (1.0 - 0.35 * rad)[None]
+    if noise:
+        out = np.clip(out + rng.normal(0, noise, out.shape), 0, 1)
+    return out.astype(np.float32), truth
+
+
+def write_color_charts(dest, cameras=CHART_CAMERAS, size=CHART_SIZE):
+    """One 16-bit PNG chart a camera (``cam<i>.png``): rotations over
+    -7..7 degrees, perspective 0..0.04, the vignette and noise 0.01, each
+    camera its own seed. Returns {serial: truth centres}."""
+    from surround360_tpu_torch.cli.common import write_image
+
+    os.makedirs(dest, exist_ok=True)
+    colors = chart_raw_colors()
+
+    def one(i):
+        img, truth = render_chart(
+            colors, size, CHART_SCALE, rotation_deg=-7.0 + 14.0 * i / max(cameras - 1, 1),
+            perspective=CHART_PERSPECTIVE * (i % 5) / 4, noise=CHART_NOISE, vignette=True,
+            seed=100 + i)
+        write_image(os.path.join(dest, f"cam{i}.png"), img, bit_depth=16)
+        return f"cam{i}", truth
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(one, range(cameras)))
+
+
+def phase_color(root, device_name="cuda", size=CHART_SIZE, cameras=CHART_CAMERAS):
+    """21: color calibration of ``cameras`` charts of size x size: the
+    library on the card and the CPU (detection ms a camera split into the
+    pixel stages, the components and the contours; the solve's seconds;
+    24 patches within 5 px of the truth, the black level within 0.02, WB x
+    CCM mapping grey to grey within 0.02), the CLI on both (seconds; the
+    card's ISP JSONs equal to the CPU's within 1e-9; the corrected medians'
+    mean DeltaE), and one chart at 1.0x, where the reference's detector
+    also takes the chart's outline: 24 patches and a solve."""
+    import torch
+
+    from surround360_tpu_torch.calib.color import (
+        delta_e_report, detect_color_chart, solve_isp_color_params)
+    from surround360_tpu_torch.cli import calibrate
+    from surround360_tpu_torch.cli.common import read_image_rgba
+
+    charts = os.path.join(root, "charts")
+    shutil.rmtree(charts, ignore_errors=True)
+    t0 = time.perf_counter()
+    truths = write_color_charts(charts, cameras, size)
+    write_s = time.perf_counter() - t0
+    M, bl_true = np.asarray(CHART_M), np.asarray(CHART_BL)
+    grey_in = np.linalg.inv(M) @ np.ones(3)
+    images = {s: read_image_rgba(os.path.join(charts, s + ".png"))[:3] for s in truths}
+    if device_name != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    info = []
+    for dev in (device_name, "cpu"):
+        stages = {"pixel": 0.0, "components": 0.0, "contours": 0.0}
+        detect_s = solve_s = 0.0
+        worst_c = worst_bl = worst_grey = 0.0
+        de = []
+        for serial, img in images.items():
+            st = {}
+            t0 = time.perf_counter()
+            cents, meds = detect_color_chart(img, device=dev, stage_seconds=st)
+            detect_s += time.perf_counter() - t0
+            for k in stages:
+                stages[k] += st[k]
+            if len(cents) != 24:
+                raise AssertionError(f"{serial} on {dev}: {len(cents)} patches")
+            worst_c = max(worst_c, float(np.abs(cents - truths[serial]).max()))
+            t0 = time.perf_counter()
+            res = solve_isp_color_params(meds, cents, device=dev)
+            solve_s += time.perf_counter() - t0
+            worst_bl = max(worst_bl, float(np.abs(res.black_level - bl_true).max()))
+            grey = res.ccm @ (res.white_balance * grey_in)
+            worst_grey = max(worst_grey, float(np.abs(grey / grey.mean() - 1).max()))
+            corrected = ((meds - res.black_level) / (1 - res.black_level)
+                         * res.white_balance) @ res.ccm.T
+            de.append(delta_e_report(corrected)["mean"])
+        n = len(images)
+        info.append(
+            f"{dev}: detection {1e3 * detect_s / n:.1f} ms a camera (pixel stages "
+            f"{1e3 * stages['pixel'] / n:.1f}, components {1e3 * stages['components'] / n:.1f}"
+            f", contours {1e3 * stages['contours'] / n:.1f}), solve {solve_s / n:.3f} s a "
+            f"camera; centroids <= {worst_c:.3f} px off, black level <= {worst_bl:.2e} off, "
+            f"grey -> grey within {worst_grey:.2e}, corrected mean DeltaE "
+            f"{np.mean(de):.3f} (max over cameras {np.max(de):.3f})")
+        if worst_c > CHART_CENT_TOL or worst_bl > BL_TOL or worst_grey > GREY_TOL:
+            raise AssertionError(f"color calibration on {dev}: " + info[-1])
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2**30 if device_name != "cpu"
+            else float("nan"))
+    jsons = []
+    for dev in (device_name, "cpu"):
+        out = os.path.join(root, f"color_isp_{dev.split(':')[0]}")
+        t0 = time.perf_counter()
+        calibrate.main(["color", "--charts_dir", charts, "--output_isp_dir", out,
+                        "--device", dev])
+        info.append(f"CLI on {dev} {time.perf_counter() - t0:.3f} s")
+        got = {}
+        for s in truths:
+            with open(os.path.join(out, s + ".json")) as f:
+                isp = json.load(f)["CameraIsp"]
+            # the black level as a fraction of full scale, as the solve has it
+            full = (1 << isp["bitsPerPixel"]) - 1
+            got[s] = np.concatenate([np.ravel(isp["blackLevel"]) / full] + [
+                np.ravel(isp[k]) for k in ("whiteBalanceGain", "ccm")])
+        jsons.append(got)
+    diff = max(float(np.abs(jsons[0][s] - jsons[1][s]).max()) for s in truths)
+    one, truth = render_chart(chart_raw_colors(), size, 1.0, rotation_deg=5.0,
+                              noise=CHART_NOISE, seed=7)
+    cents, meds = detect_color_chart(one, device=device_name)
+    res = solve_isp_color_params(meds, cents, device=device_name)
+    log(f"[21 color] {cameras} charts {size}x{size} at {CHART_SCALE}x written in "
+        f"{write_s:.1f} s; " + "; ".join(info) + f"; the card's ISP JSONs vs the CPU's "
+        f"max-abs {diff:.3g} (<= {COLOR_CPU_TOL}); peak {peak:.3f} GiB; the 1.0x chart: "
+        f"{len(cents)} patches, <= {float(np.abs(cents - truth).max()):.3f} px off, "
+        f"cost {res.final_cost:.4f}")
+    if diff > COLOR_CPU_TOL or len(cents) != 24:
+        raise AssertionError(f"color: card vs CPU {diff}, 1.0x chart {len(cents)} patches")
+
+
+def phase_mesh(ctx, inputs, device, frames=MESH_FRAMES):
+    """22: parallel/mesh.py at phase 4's context: make_render_mesh() over
+    the visible cards, then virtual meshes of one device repeated 14 times
+    at (data 2, ring 7), temporal, two steps chained through the returned
+    states, and (data 1, ring 14); every output against a sequential
+    render_frame chain (within 1e-4), s a frame of each, peak memory, and
+    K1's launches of each mesh run."""
+    import torch
+
+    from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.parallel import (
+        make_render_mesh, shard_frame_batch, sharded_render_step)
+    from surround360_tpu_torch.render.panorama import render_frame
+
+    side, top, bottom = inputs
+    gains = 0.8 + 0.4 * np.arange(frames) / max(frames - 1, 1)
+    batch = torch.stack([torch.cat([side[:, :3] * float(g), side[:, 3:]], 1) for g in gains])
+    tops, bottoms = top[None].expand((frames,) + top.shape), bottom[None].expand(
+        (frames,) + bottom.shape)
+
+    # the sequential chains: each data shard of 2 frames, continued once
+    t0 = time.perf_counter()
+    ref = {}
+    for first in range(0, frames, 2):
+        st = None
+        for rep in range(2):
+            for f in (first, first + 1):
+                out, st = render_frame(ctx, batch[f], top, bottom, state=st,
+                                       use_temporal=st is not None)
+                ref[(rep, f)] = out["equirect"]
+    _sync(device)
+    seq_s = (time.perf_counter() - t0) / len(ref)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    meshes = [("make_render_mesh()", make_render_mesh() if device.type == "cuda"
+               else make_render_mesh([device]), 2, 1)]
+    meshes.append(("(2, 7)", make_render_mesh([device] * 14, data_parallel=2), frames, 2))
+    meshes.append(("(1, 14)", make_render_mesh([device] * 14, data_parallel=1), 2, 1))
+    info = []
+    for name, mesh, F, steps in meshes:
+        step, _ = sharded_render_step(ctx, mesh, use_temporal=True)
+        fw.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, err = None, 0.0
+        sharded = shard_frame_batch(mesh, batch[:F])
+        for rep in range(steps):
+            out, state = step(sharded, tops[:F], bottoms[:F], state)
+            for f in range(F):  # every mesh's data chunks are 2 frames
+                err = max(err, float((out["equirect"][f] - ref[(rep, f)]).abs().max()))
+        _sync(device)
+        secs = (time.perf_counter() - t0) / (F * steps)
+        info.append(f"{name} {mesh.shape} F={F} x {steps} step(s): {secs:.3f} s a frame, "
+                    f"max-abs vs the chain {err:.3g}, K1 launches {fw.launch_count(fw.K1)}, "
+                    f"K3 {fw.launch_count(fw.K3)}")
+        if not err <= MESH_TOL:
+            raise AssertionError(f"mesh {name}: {err} > {MESH_TOL}")
+        if device.type == "cuda" and not fw.launch_count(fw.K1):
+            raise AssertionError(f"mesh {name} launched no K1")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
+            else float("nan"))
+    log(f"[22 mesh] {ctx.config.eqr_width}x{ctx.config.eqr_height}/eye "
+        f"{ctx.config.side_flow_alg}: sequential chain {seq_s:.3f} s a frame; "
+        + "; ".join(info) + f"; peak {peak:.2f} GiB (one card: the meshes' devices "
+        "are one card repeated, so no multi-GPU rate is measured)")
+
+
 def _probe_cases(rng, device):
     """(site, variant, inputs, kernel call, twin, tolerance, scale floor)
     for every K4 and K5 variant, at the smaller grid of the pair that the
@@ -2262,6 +2564,7 @@ def main():
     probe_err, probe_failed = probe_check()
     probe_launches, probe_rows = phase_probes()
     phase_harnesses(rig, views, ctx, inputs, device)
+    phase_mesh(ctx, inputs, device)
     del ctx, inputs
     torch.cuda.empty_cache()
     root, painted = phase_unpack(rig, views)
@@ -2273,7 +2576,7 @@ def main():
     rec_dir = phase_capture(root)
     card_dir, cpu_dir = phase_preview(root, rec_dir)
     phase_compare(card_dir, cpu_dir)
-    # calibration (phases 19-20) runs no hand kernel: the counts stay 0
+    # calibration (phases 19-21) runs no hand kernel: the counts stay 0
     from surround360_tpu_torch.benchmarks import probe_common as pc
     from surround360_tpu_torch.ops import fused_window as fw
 
@@ -2284,9 +2587,10 @@ def main():
     phase_calib_noise(rig)
     phase_calib_match(calib_root, rig)
     phase_vignetting(calib_root)
+    phase_color(calib_root)
     calib_launches = {k: fw.launch_count(k) for k in fw.KERNELS}
     calib_launches["K4, K5"] = pc.launch_count()
-    log(f"[20 vignetting] kernel launches in phases 19-20: {calib_launches}")
+    log(f"[21 color] kernel launches in phases 19-21: {calib_launches}")
     if any(calib_launches.values()):
         raise AssertionError(f"calibration launched a sampler kernel: {calib_launches}")
     shutil.rmtree(WORK, ignore_errors=True)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 import time
 
 import torch
@@ -30,6 +31,7 @@ __all__ = [
 # (kernel, variant) -> launches of the probe kernels
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict = {}  # source file -> loaded ctypes library
+_LOCK = threading.Lock()  # guards LAUNCHES and _LIBS across threads
 SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of the timed launches
 
 
@@ -78,8 +80,9 @@ def load_library(source: str, entry: str, n_ptrs: int, n_ints: int):
     """Build ``csrc/<source>`` (once per hash, see :mod:`..cuda_build`) and
     return its C entry point ``entry``, which takes ``n_ptrs`` pointers,
     ``n_ints`` ints and the stream."""
-    if source not in _LIBS:
-        _LIBS[source] = ctypes.CDLL(cuda_build.build(source))
+    with _LOCK:
+        if source not in _LIBS:
+            _LIBS[source] = ctypes.CDLL(cuda_build.build(source))
     fn = getattr(_LIBS[source], entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -95,7 +98,8 @@ def launch(kernel: str, variant: str, fn, tensors, ints, device) -> None:
         err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} ({variant}) launch failed: CUDA error {err}")
-    LAUNCHES[(kernel, variant)] += 1
+    with _LOCK:
+        LAUNCHES[(kernel, variant)] += 1
 
 
 def device_ms(call, reps: int) -> float:

@@ -1,9 +1,11 @@
 """Calibration CLI drivers.
 
 Port of ``surround360_tpu/cli/calibrate.py`` (rebuilds of
-scripts/geometric_calibration.py and scripts/vignetting_calibrate.py):
+scripts/geometric_calibration.py, scripts/color_calibrate_all.py and
+scripts/vignetting_calibrate.py):
 
   python -m surround360_tpu_torch.cli.calibrate geometric ...
+  python -m surround360_tpu_torch.cli.calibrate color ...
   python -m surround360_tpu_torch.cli.calibrate vignetting ...
 
 Each sub-command takes ``--device`` (default ``cuda``; ``cpu`` to run on
@@ -22,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..calib.color import delta_e_report, detect_color_chart, solve_isp_color_params
 from ..calib.geometric import (
     GeometricCalibrationConfig,
     calibrate_geometric,
@@ -117,6 +120,43 @@ def run_geometric(args):
     save_rig(args.output_json, refined)
 
 
+def run_color(args):
+    """One ISP JSON per chart image (``<serial>.json``): the chart detected,
+    black level, white balance and CCM solved, written over
+    ``--base_isp_json``, and the DeltaE of the corrected patch medians
+    logged. Images are read by the package's codecs (PNG, JPEG); a TIFF
+    chart raises, naming the file."""
+    device = resolve_device(args.device)
+    os.makedirs(args.output_isp_dir, exist_ok=True)
+    for name in sorted(os.listdir(args.charts_dir)):
+        if not name.lower().endswith((".png", ".tiff", ".tif", ".jpg")):
+            continue
+        serial = os.path.splitext(name)[0]
+        img = read_image_rgba(os.path.join(args.charts_dir, name))[:3]
+        centroids, medians = detect_color_chart(img, device=device)
+        result = solve_isp_color_params(
+            medians, centroids, illuminant=args.illuminant, device=device
+        )
+        base = load_isp_config(args.base_isp_json or {"CameraIsp": {}})
+        cfg = dataclasses.replace(
+            base,
+            black_level=tuple(float(b * base.max_pixel_value) for b in result.black_level),
+            white_balance_gain=tuple(map(float, result.white_balance)),
+            ccm=tuple(tuple(map(float, row)) for row in result.ccm),
+        )
+        out_path = os.path.join(args.output_isp_dir, f"{serial}.json")
+        with open(out_path, "w") as f:
+            json.dump(cfg.to_json(), f, indent=2)
+        # quality report on corrected medians
+        corrected = (
+            (medians - result.black_level) / (1.0 - result.black_level)
+            * result.white_balance
+        ) @ np.asarray(result.ccm).T
+        rep = delta_e_report(corrected, args.illuminant)
+        log.info("%s: deltaE mean %.2f max %.2f -> %s",
+                 serial, rep["mean"], rep["max"], out_path)
+
+
 def run_vignetting(args):
     device = resolve_device(args.device)
     paths = [os.path.join(args.sweep_dir, name) for name in sorted(os.listdir(args.sweep_dir))
@@ -159,6 +199,12 @@ def main(argv=None):
     g.add_argument("--num_points", type=int, default=1000)
     g.add_argument("--perturb_rotation", type=float, default=0.01)
 
+    c = sub.add_parser("color", parents=[common])
+    c.add_argument("--charts_dir", required=True)
+    c.add_argument("--output_isp_dir", required=True)
+    c.add_argument("--illuminant", default="D50", choices=["D50", "D65"])
+    c.add_argument("--base_isp_json", default="")
+
     v = sub.add_parser("vignetting", parents=[common])
     v.add_argument("--sweep_dir", required=True)
     v.add_argument("--output_isp_json", required=True)
@@ -169,6 +215,8 @@ def main(argv=None):
     setup_logging(args.verbose)
     if args.cmd == "geometric":
         run_geometric(args)
+    elif args.cmd == "color":
+        run_color(args)
     else:
         run_vignetting(args)
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.filters import median_filter, median_filter_5x5_separable
-from ..ops.resize import gaussian_blur, resize_bilinear, resize_cubic
+from ..ops.resize import gaussian_blur, per_image, resize_bilinear, resize_cubic
 from ..ops.window_sampler import make_window_sampler, plan_windows_budgeted
 
 HINT_UNKNOWN = 0
@@ -399,7 +399,7 @@ def _adjust_initial_flow(I0, I1, alpha0, alpha1, flow, hint, params: FlowParams)
     B, H, W = I0.shape
     # poor man's color correction (PixFlow.h:261-277)
     a = alpha0 * alpha1
-    ratio = torch.sum(a * I0, dim=(-1, -2)) / (torch.sum(a * I1, dim=(-1, -2)) + 1e-12)
+    ratio = per_image(torch.sum, a * I0) / (per_image(torch.sum, a * I1) + 1e-12)
     I1eq = I1 * ratio[:, None, None]
     dist = _search_distance(params)
 

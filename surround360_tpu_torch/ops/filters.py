@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import resize
-from .resize import conv_separable_1d, on_device
+from .resize import conv_separable_1d, matmul_batched, on_device
 
 __all__ = [
     "iir_lowpass_2d",
@@ -72,8 +72,7 @@ def iir_lowpass_2d(
         return conv_separable_1d(out, axis_kernel(W), h_boundary, -1)
     rm = on_device(_iir_band_matrix, img.device, H, alpha, v_boundary)
     cm = on_device(_iir_band_matrix, img.device, W, alpha, h_boundary)
-    out = torch.einsum("oh,...hw->...ow", rm, img)
-    return torch.einsum("pw,...ow->...op", cm, out)
+    return matmul_batched(rm, img, cm.T)
 
 
 def sharpen_iir(

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 
 import torch
 
@@ -62,6 +63,8 @@ MAX_OFFSETS = 16  # csrc/fused_window_folded.cu kMaxOffsets
 LAUNCHES: collections.Counter = collections.Counter()
 RECORD: dict | None = None
 _LIBS: dict = {}  # source file -> loaded ctypes library
+# guards LAUNCHES, RECORD and _LIBS: frames may render on several threads
+_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -79,19 +82,20 @@ def launch_count(kernel: str | None = None, site: str | None = None) -> int:
 def _load_library(kernel: str = K1):
     """Build (once per source hash) and load ``kernel``'s shared library."""
     source = _SOURCES[kernel]
-    if source in _LIBS:
-        return _LIBS[source]
-    lib = ctypes.CDLL(cuda_build.build(source))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    if source == _SOURCES[K1]:
-        fn = lib.s360_fused_window_sample
-        fn.argtypes = [vp] * 6 + [i] * 14 + [vp]
-    else:
-        fn = lib.s360_fused_window_folded
-        fn.argtypes = [vp] * 6 + [i] * 17 + [vp, vp]
-    fn.restype = i
-    _LIBS[source] = lib
-    return lib
+    with _LOCK:
+        if source in _LIBS:
+            return _LIBS[source]
+        lib = ctypes.CDLL(cuda_build.build(source))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if source == _SOURCES[K1]:
+            fn = lib.s360_fused_window_sample
+            fn.argtypes = [vp] * 6 + [i] * 14 + [vp]
+        else:
+            fn = lib.s360_fused_window_folded
+            fn.argtypes = [vp] * 6 + [i] * 17 + [vp, vp]
+        fn.restype = i
+        _LIBS[source] = lib
+        return lib
 
 
 def _check_inputs(padded, sy, sx, xt, yt, interpolation, border, origin_shape):
@@ -223,14 +227,20 @@ def fused_window_sample_reference(
 def _record(kernel, site, args, kw, out):
     """Keep the launch with the most samples per (kernel, site, offsets),
     as (args, kw, out, launches of that key)."""
-    if RECORD is None:
-        return
-    key = (kernel, site, kw.get("offsets"))
-    n = RECORD[key][3] + 1 if key in RECORD else 1
-    if key not in RECORD or args[3].numel() > RECORD[key][0][3].numel():
-        RECORD[key] = (args, kw, out, n)
-    else:
-        RECORD[key] = RECORD[key][:3] + (n,)
+    with _LOCK:
+        if RECORD is None:
+            return
+        key = (kernel, site, kw.get("offsets"))
+        n = RECORD[key][3] + 1 if key in RECORD else 1
+        if key not in RECORD or args[3].numel() > RECORD[key][0][3].numel():
+            RECORD[key] = (args, kw, out, n)
+        else:
+            RECORD[key] = RECORD[key][:3] + (n,)
+
+
+def _count(kernel, site):
+    with _LOCK:
+        LAUNCHES[(kernel, site)] += 1
 
 
 def fused_window_sample(
@@ -269,7 +279,7 @@ def fused_window_sample(
         )
     if err != 0:
         raise RuntimeError(f"fused_window_sample launch failed: CUDA error {err}")
-    LAUNCHES[(K1, site)] += 1
+    _count(K1, site)
     _record(K1, site, args, kw, out)
     return out
 
@@ -367,6 +377,6 @@ def fused_window_sample_folded(
         )
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    LAUNCHES[(kernel, site)] += 1
+    _count(kernel, site)
     _record(kernel, site, args, kw, out)
     return out

@@ -138,11 +138,45 @@ def conv_separable_1d(img: torch.Tensor, kernel_np, boundary: str, axis: int):
     return out.reshape(lead + (n,)).movedim(-1, axis)
 
 
+def per_image(fn, img: torch.Tensor) -> torch.Tensor:
+    """``fn`` of each image of ``img``'s leading dim, stacked (a 2-D image
+    goes whole). A library picks a reduction's algorithm by its shape (how
+    a sum splits across blocks), so a sum over a batch of 2 images would
+    round apart from one over 14, and a frame's pixels would depend on how
+    its camera pairs are batched (parallel/mesh.py splits the ring); one
+    image at a time, each call has one shape."""
+    if img.ndim < 3:
+        return fn(img)
+    return torch.stack([fn(x) for x in img.unbind(0)])
+
+
+def matmul_batched(left, img: torch.Tensor, right) -> torch.Tensor:
+    """``left @ x @ right`` for every (H, W) matrix x of ``img`` (``left``
+    (O, H) or None, ``right`` (W, P) or None) as strided-batched products,
+    one matrix a batch entry. A GEMM that folds the batch into its rows or
+    columns takes its kernel (split-K or not) from the batch size, so a
+    frame's pixels would depend on how its camera pairs are batched
+    (parallel/mesh.py splits the ring); the batched products give the
+    same bits for any batch count from 2 up (measured on the H100; one
+    matrix alone goes to a plain GEMM, so it is paired with itself)."""
+    lead, (H, W) = img.shape[:-2], img.shape[-2:]
+    x = img.reshape(-1, H, W)
+    n = x.shape[0]
+    if n == 1:
+        x = x.expand(2, H, W)
+    if left is not None:
+        x = torch.bmm(left.expand(x.shape[0], *left.shape), x)
+    if right is not None:
+        x = torch.bmm(x, right.expand(x.shape[0], *right.shape))
+    return x[:n].reshape(lead + x.shape[-2:])
+
+
 def _apply_separable_axis(img: torch.Tensor, mat: torch.Tensor, axis: int):
-    """Apply one (n_out, n_in) matrix along ``axis`` (-2 rows / -1 cols)."""
+    """Apply one (n_out, n_in) matrix along ``axis`` (-2 rows / -1 cols)
+    (:func:`matmul_batched`)."""
     if axis in (-2, img.ndim - 2):
-        return torch.einsum("oh,...hw->...ow", mat, img)
-    return torch.einsum("pw,...hw->...hp", mat, img)
+        return matmul_batched(mat, img, None)
+    return matmul_batched(None, img, mat.T)
 
 
 def _halve_axis_area(img: torch.Tensor, axis: int):
@@ -255,8 +289,7 @@ def gaussian_blur(
         band = _gaussian_band_matrix
         rm = on_device(band, img.device, H, float(sigma), boundary, ksize)
         cm = on_device(band, img.device, W, float(sigma), boundary, ksize)
-        out = torch.einsum("oh,...hw->...ow", rm, img)
-        return torch.einsum("pw,...ow->...op", cm, out)
+        return matmul_batched(rm, img, cm.T)
     radius = (ksize - 1) // 2 if ksize else max(1, int(np.ceil(3.0 * sigma)))
     xs = np.arange(-radius, radius + 1)
     k = np.exp(-0.5 * (xs / sigma) ** 2)

@@ -19,7 +19,7 @@ import torch
 
 from ..flow import HINT_LEFT, HINT_RIGHT, compute_flow
 from ..ops.remap import remap
-from ..ops.resize import on_device
+from ..ops.resize import matmul_batched, on_device
 from ..ops.window_sampler import sample_displaced, sample_displaced_residual
 
 __all__ = [
@@ -85,7 +85,7 @@ def _lazy_warp_compose(flow, warp_x: np.ndarray, t_cols: np.ndarray, invert_t: b
     B, _, H, W = flow.shape
     dev = flow.device
     S = on_device(_column_sample_matrix, dev, W, tuple(np.round(warp_x, 6)))
-    remapped = torch.einsum("cw,bfhw->bfhc", S, flow)  # (B, 2, H, Wc)
+    remapped = matmul_batched(None, flow, S.T)  # (B, 2, H, Wc)
     t = torch.from_numpy(1.0 - t_cols if invert_t else t_cols).to(dev)
     gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
     warp_comp_x = torch.from_numpy(warp_x).to(dev)[None, None, :] + remapped[:, 0] * t

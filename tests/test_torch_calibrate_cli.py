@@ -3,8 +3,13 @@ CPU against the JAX package's CLI (surround360_tpu/cli/calibrate.py): the
 geometric sub-command's --unit_test and --matches_json routes, and the
 vignetting sub-command, with the tolerances of the float32 gap measured in
 tests/test_torch_calib_geometric.py and tests/test_torch_vignetting.py;
-the built-in matcher's --frames_dir route against the library; and
---device cuda (the default) raising without CUDA.
+the built-in matcher's --frames_dir route against the library; the color
+sub-command on two charts against the JAX CLI run with x64 enabled (ISP
+JSONs within 1e-6: the detectors agree exactly and the solves are the
+same float64 arithmetic; the JAX CLI's default float32 solve stops short
+of that optimum on these charts) and its refusal
+of a TIFF chart, which the reference reads with OpenCV; and --device cuda
+(the default) raising without CUDA.
 """
 
 import json
@@ -35,6 +40,7 @@ PRINCIPAL_TOL = 5e-4  # px
 FOCAL_TOL = 2e-4  # px
 DISTORTION_TOL = 1e-6
 ROLLOFF_TOL = 1e-5  # tests/test_torch_vignetting.py
+COLOR_JSON_TOL = 1e-6  # tests/test_torch_color.py's solve bound
 
 
 def _small_rig():
@@ -142,14 +148,66 @@ def test_vignetting_matches_jax(tmp_path):
         assert got[key] == want[key], key
 
 
-@pytest.mark.parametrize("sub", ["geometric", "vignetting"])
+def _color_json(path):
+    with open(path) as f:
+        isp = json.load(f)["CameraIsp"]
+    return isp, np.concatenate([np.ravel(isp.pop(k)) for k in
+                                ("blackLevel", "whiteBalanceGain", "ccm")])
+
+
+def test_color_matches_jax(tmp_path):
+    """Two 640 px charts of phase 21's kind (raw colours, rotated, with
+    perspective, vignette and noise), through both CLIs."""
+    charts = str(tmp_path / "charts")
+    serials = cs.write_color_charts(charts, cameras=2, size=640)
+    port, jax = str(tmp_path / "port"), str(tmp_path / "jax")
+    calibrate.main(["color", "--charts_dir", charts, "--output_isp_dir", port,
+                    "--device", "cpu"])
+    import jax as jax_module
+
+    with jax_module.enable_x64(True):
+        jax_calibrate.main(["color", "--charts_dir", charts, "--output_isp_dir", jax])
+    assert sorted(os.listdir(port)) == sorted(os.listdir(jax)) == sorted(
+        s + ".json" for s in serials)
+    for s in serials:
+        got, got_v = _color_json(os.path.join(port, s + ".json"))
+        want, want_v = _color_json(os.path.join(jax, s + ".json"))
+        assert got == want  # every other field of the base config
+        np.testing.assert_allclose(got_v, want_v, rtol=0, atol=COLOR_JSON_TOL)
+        # the black level, in units of the base config's 8-bit maximum
+        np.testing.assert_allclose(got_v[:3] / 255.0, cs.CHART_BL, atol=0.02)
+
+
+def test_color_tiff_chart_raises(tmp_path):
+    """A .tif chart: the reference reads it through OpenCV; the port's
+    codecs read PNG and JPEG only, and it raises naming the file."""
+    import cv2
+
+    charts = tmp_path / "charts"
+    charts.mkdir()
+    img, _ = cs.render_chart(cs.chart_raw_colors(), 640, 1.5, rotation_deg=3.0, seed=3)
+    bgr = np.moveaxis(img, 0, -1)[..., ::-1]
+    cv2.imwrite(str(charts / "cam0.tif"), (bgr * 65535 + 0.5).astype(np.uint16))
+    jax_calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
+                        str(tmp_path / "jax")])
+    assert os.path.exists(tmp_path / "jax" / "cam0.json")
+    with pytest.raises(ValueError, match=r"unsupported image format '\.tif'.*cam0\.tif"):
+        calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
+                        str(tmp_path / "port"), "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "port" / "cam0.json")
+
+
+@pytest.mark.parametrize("sub", ["geometric", "vignetting", "color"])
 def test_cuda_default_raises_without_cuda(tmp_path, sub):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available")
-    argv = (["geometric", "--rig_json", str(tmp_path / "rig.json"), "--unit_test"]
-            if sub == "geometric" else
-            ["vignetting", "--sweep_dir", str(tmp_path), "--output_isp_json",
-             str(tmp_path / "isp.json")])
+    argv = {
+        "geometric": ["geometric", "--rig_json", str(tmp_path / "rig.json"), "--unit_test"],
+        "vignetting": ["vignetting", "--sweep_dir", str(tmp_path), "--output_isp_json",
+                       str(tmp_path / "isp.json")],
+        "color": ["color", "--charts_dir", str(tmp_path), "--output_isp_dir",
+                  str(tmp_path / "isp.json")],
+    }[sub]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calibrate.main(argv)
     assert not os.path.exists(tmp_path / "isp.json")

@@ -56,6 +56,9 @@ SLICE_MODULES = [
     "surround360_tpu_torch.calib.orb_pattern",
     "surround360_tpu_torch.calib.matches",
     "surround360_tpu_torch.calib.vignetting",
+    "surround360_tpu_torch.calib.color",
+    "surround360_tpu_torch.parallel",
+    "surround360_tpu_torch.parallel.mesh",
     "surround360_tpu_torch.benchmarks",
     "surround360_tpu_torch.benchmarks.probe_common",
     "surround360_tpu_torch.benchmarks.kernel_step_cost",
@@ -122,6 +125,28 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
     )
     proc = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert proc.returncode == 0, proc.stderr
+
+
+def test_color_and_mesh_entry_points_default_to_cuda(monkeypatch):
+    """The colour calibration and the mesh run on the card unless the
+    caller asks for the CPU: the library functions' device defaults,
+    calibrate color's --device, and make_render_mesh() over the visible
+    CUDA devices, which raises without one."""
+    import inspect
+
+    from surround360_tpu_torch.calib import color
+    from surround360_tpu_torch.cli import calibrate
+    from surround360_tpu_torch.parallel import make_render_mesh
+
+    for fn in (color.detect_color_chart, color.solve_isp_color_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    seen = {}
+    monkeypatch.setattr(calibrate, "run_color", lambda args: seen.update(vars(args)))
+    calibrate.main(["color", "--charts_dir", "charts", "--output_isp_dir", "isp"])
+    assert seen["device"] == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_render_mesh()
 
 
 class _FakeCudaTensor(torch.Tensor):
