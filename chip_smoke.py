@@ -152,6 +152,19 @@ the run after phase 13, so that the measurements still print). Phases 14,
    seconds, the card's ISP JSONs equal to the CPU's within 1e-9; peak
    memory; one chart at 1.0x (where the reference also returns the chart's
    outline): 24 patches and a solve. Phases 19-21 launch no kernel.
+23. bench and root entries (after phase 21): python -m
+   surround360_tpu_torch.bench as a user runs it, in a subprocess with
+   S360_BENCH_MEMSTATS=1, (a) at its defaults (the 6k preset, 3 temporal
+   frames timed with one sync) and (b) in its legacy mode (1008x504, 512
+   px cameras, batch 8 chained, 2 batches): exit 0, the last line's four
+   keys, value > 0; frames/s, seconds a frame, peak memory, the
+   subprocess's wall seconds and its kernel launches (K1 must launch);
+   (c) graft_entry.entry() on the card (shape, finite) and
+   dryrun_multichip(8) on the card repeated (its line, both meshes within
+   1e-4 of the chain); (d) TF32: calibrate vignetting in a fresh process
+   that sets no TF32 flag, on phase 20's sweep, equal to phase 20's card
+   JSON within 1e-6; then a 2048 px 16-bit raw written as TIFF by the
+   port's writer through raw2rgb on the card, equal to the PNG route.
 22. mesh (run right after phase 15, on phase 4's 6k context and inputs):
    parallel/mesh.py's sharded_render_step, temporal, on make_render_mesh()
    over the visible cards (2 frames), on the card repeated 14 times at
@@ -162,7 +175,8 @@ the run after phase 13, so that the measurements still print). Phases 14,
    K1 and K3 launches of each mesh run (K1 must launch). One card: no
    multi-GPU rate is measured.
 
-Then the kernels' JSON line (K1-K3 and the four probe sites), the card's
+Then the kernels' JSON line (K1-K3 and the four probe sites; K1's launches
+include phase 23's), the card's
 name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -277,6 +291,9 @@ GREY_TOL = 0.02  # WB x CCM maps grey to grey (TestColorSolve)
 COLOR_CPU_TOL = 1e-9  # the card's ISP JSONs vs the CPU's (black level / full scale)
 MESH_FRAMES = 4  # phase 22: (data 2, ring 7) renders 2 chunks of 2 frames
 MESH_TOL = 1e-4  # mesh vs the sequential chain (the reference's dryrun_multichip bound)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's line
+BENCH_LEGACY_FRAMES = 2  # batches the legacy bench times (its default is 5)
+BENCH_TIMEOUT_S = 900  # each bench subprocess
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke_cli")  # gitignored; removed at the end
 
@@ -2133,6 +2150,129 @@ def phase_mesh(ctx, inputs, device, frames=MESH_FRAMES):
         "are one card repeated, so no multi-GPU rate is measured)")
 
 
+def _bench(extra_env, device_name="cuda"):
+    """``python -m surround360_tpu_torch.bench`` as a user runs it, in a
+    subprocess with S360_BENCH_MEMSTATS=1: (its last stdout line, the
+    subprocess's wall seconds, the peak-memory line, the kernel launches
+    it counted from its frame 0 on)."""
+    env = dict(os.environ, S360_BENCH_MEMSTATS="1", **extra_env)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "surround360_tpu_torch.bench",
+                           "--device", device_name], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {extra_env} exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(line) != BENCH_KEYS or not line["value"] > 0:
+        raise AssertionError(f"bench {extra_env}: last line {line}")
+    if line["vs_baseline"] != round(line["value"] / 30.0, 4):
+        raise AssertionError(f"bench {extra_env}: vs_baseline of {line}")
+    stats = [l for l in proc.stderr.splitlines() if l.startswith("# ")]
+    peak = next((l[2:] for l in stats if l.startswith("# peak HBM")), "no peak (CPU)")
+    launches = json.loads(next(l for l in stats if l.startswith("# kernel launches"))
+                          .removeprefix("# kernel launches "))
+    return line, wall, peak, launches
+
+
+def _check_launches(what, launches):
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    if not launches[fw.K1] or launches[fw.K2]:
+        raise AssertionError(f"{what}: K1 must launch and K2 must not: {launches}")
+
+
+def phase_bench_entries(calib_root, device_name="cuda"):
+    """23: the bench at its defaults and in its legacy mode, the root
+    entry's counterpart, and the TF32 repair, on the card; returns the
+    kernel launches of the three rendering runs."""
+    import torch
+
+    from surround360_tpu_torch import graft_entry
+    from surround360_tpu_torch.cli import common, raw2rgb
+    from surround360_tpu_torch.cli.tiff import write_tiff
+    from surround360_tpu_torch.isp.pipeline import IspConfig
+    from surround360_tpu_torch.ops import fused_window as fw
+
+    if device_name.startswith("cuda"):
+        torch.cuda.empty_cache()  # the subprocesses share the card
+    runs = {}
+    for name, env in (("6k", {}), ("legacy", {"S360_BENCH_PRESET": "off",
+                                              "S360_BENCH_FRAMES": str(BENCH_LEGACY_FRAMES)})):
+        line, wall, peak, launches = _bench(env, device_name)
+        _check_launches(f"bench {name}", launches)
+        runs[name] = launches
+        log(f"[23 bench] {name}: {line['value']} frames/s ({1 / line['value']:.3f} s a "
+            f"frame), vs_baseline {line['vs_baseline']}, {peak}, subprocess {wall:.1f} s, "
+            f"launches {launches}; metric {line['metric']!r}")
+
+    fw.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(device_name)
+    out = fn(*args)
+    _sync(out.device)
+    entry_s = time.perf_counter() - t0
+    if tuple(out.shape) != (3, 280, 280) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"graft entry: {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        err, err14 = graft_entry.dryrun_multichip(8, device_name)
+    dry_s = time.perf_counter() - t0
+    runs["graft entry"] = {k: fw.launch_count(k) for k in fw.KERNELS}
+    _check_launches("graft entry", runs["graft entry"])
+    if not (err < MESH_TOL and err14 < MESH_TOL):
+        raise AssertionError(f"dryrun_multichip: {err}, {err14}")
+    log(f"[23 entry] entry(): {tuple(out.shape)} finite in {entry_s:.2f} s; "
+        f"{buf.getvalue().strip()} ({dry_s:.1f} s); launches {runs['graft entry']}")
+
+    # TF32: calibrate vignetting alone in a fresh process that sets no flag
+    # itself, on phase 20's sweep, against phase 20's card JSON
+    out_json = os.path.join(calib_root, "isp_fresh.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import torch; assert torch.backends.cudnn.allow_tf32; "
+         "from surround360_tpu_torch.cli import calibrate; calibrate.main(['vignetting', "
+         f"'--sweep_dir', {os.path.join(calib_root, 'sweep')!r}, '--output_isp_json', "
+         f"{out_json!r}, '--device', {device_name!r}])"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh calibrate vignetting: {proc.stderr[-3000:]}")
+    rolloffs = []
+    for path in (out_json, os.path.join(calib_root, f"isp_{device_name.split(':')[0]}.json")):
+        with open(path) as f:
+            isp = json.load(f)["CameraIsp"]
+        rolloffs.append(np.asarray([isp["vignetteRollOffH"], isp["vignetteRollOffV"]]))
+    diff = float(np.abs(rolloffs[0] - rolloffs[1]).max())
+    if not diff <= ROLLOFF_CPU_TOL:
+        raise AssertionError(f"fresh calibrate vignetting vs phase 20: {diff}")
+    # a TIFF raw (the port's writer) through raw2rgb on the card, as the PNG
+    raw = np.random.default_rng(23).integers(0, 4096, (SWEEP_SIZE, SWEEP_SIZE, 1))
+    raw = raw.astype(np.uint16)
+    tdir = os.path.join(calib_root, "tiff")
+    os.makedirs(tdir, exist_ok=True)
+    isp_path = os.path.join(tdir, "isp.json")
+    with open(isp_path, "w") as f:
+        json.dump(IspConfig(**ISP_KW).to_json(), f)
+    write_tiff(os.path.join(tdir, "raw.tif"), raw)
+    common.write_png(os.path.join(tdir, "raw.png"), raw)
+    rgb = []
+    for ext in ("tif", "png"):
+        dest = os.path.join(tdir, f"rgb_{ext}.png")
+        raw2rgb.main(["--input_image_path", os.path.join(tdir, f"raw.{ext}"),
+                      "--output_image_path", dest, "--isp_config_path", isp_path,
+                      "--output_bpp", "16", "--device", device_name])
+        rgb.append(common.read_png(dest))
+    tiff_err = int(np.abs(rgb[0].astype(np.int64) - rgb[1]).max())
+    log(f"[23 tf32] calibrate vignetting in a fresh process ({time.perf_counter() - t0:.1f} s "
+        f"with the TIFF check) vs phase 20's card JSON: rolloff max-abs {diff:.3g} (<= "
+        f"{ROLLOFF_CPU_TOL}); raw2rgb of a {SWEEP_SIZE} px 16-bit TIFF raw on the card vs "
+        f"the PNG route: max-abs {tiff_err}")
+    if tiff_err:
+        raise AssertionError(f"raw2rgb TIFF vs PNG: {tiff_err}")
+    return {k: sum(r[k] for r in runs.values()) for k in fw.KERNELS}
+
+
 def _probe_cases(rng, device):
     """(site, variant, inputs, kernel call, twin, tolerance, scale floor)
     for every K4 and K5 variant, at the smaller grid of the pair that the
@@ -2593,6 +2733,7 @@ def main():
     log(f"[21 color] kernel launches in phases 19-21: {calib_launches}")
     if any(calib_launches.values()):
         raise AssertionError(f"calibration launched a sampler kernel: {calib_launches}")
+    bench_launches = phase_bench_entries(calib_root)
     shutil.rmtree(WORK, ignore_errors=True)
     if small_failed or probe_failed:
         raise AssertionError(f"phase 3 or 14 failed: {small_failed + probe_failed}")
@@ -2600,11 +2741,12 @@ def main():
     # calls (K1: the largest per call site, phases 5 and 12; K3: the largest
     # per flow site and offset set, phases 8 and 12; K2: its forced call in
     # phase 8).
-    # launches: the three product paths' runs (phase 4's render_frame,
-    # phase 7's CLI and phase 11's CLI with pole removal and a cubemap),
-    # counted from 0 just before each; K2 has no product caller, so 0
+    # launches: the product paths' runs (phase 4's render_frame, phase 7's
+    # CLI, phase 11's CLI with pole removal and a cubemap, phase 23's bench
+    # in both modes and the root entry's counterpart), counted from 0 just
+    # before each; K2 has no product caller, so 0
     launches = {k: render_launches[k] + cli_launches[k] + product_launches[k]
-                for k in render_launches}
+                + bench_launches[k] for k in render_launches}
     entries = [
         _kernel_entry(name, launches[name], small[name], sites, nvcc_s)
         for name, sites in (("fused_window_sample", k1 + k1_new),

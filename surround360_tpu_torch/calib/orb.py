@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.math_util import disable_tf32
+
 __all__ = ["to_gray8", "detect_and_compute", "match_descriptors", "orb_match"]
 
 N_FEATURES = 4000
@@ -336,6 +338,7 @@ def _gaussian_7x7(img: torch.Tensor) -> torch.Tensor:
     x = torch.arange(7, dtype=torch.float64, device=img.device) - 3
     k = torch.exp(-(x * x) / (2 * 2.0**2))
     k = (k / k.sum()).to(torch.float32)
+    disable_tf32()
     out = F.pad(img[None, None], (3, 3, 3, 3), mode="reflect")
     out = F.conv2d(out, k.view(1, 1, 1, 7))
     out = F.conv2d(out, k.view(1, 1, 7, 1))[0, 0]

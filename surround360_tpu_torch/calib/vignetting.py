@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.math_util import median
+from ..utils.math_util import disable_tf32, median
 
 __all__ = ["fit_vignetting", "acquire_vignetting_samples", "VignettingFit"]
 
@@ -170,6 +170,7 @@ def acquire_vignetting_samples(
             for img in raw_images[i : i + n]
         ])
         if charts is None:
+            disable_tf32()
             x = F.pad(chunk[:, None], (half, half, 0, 0), mode="reflect")
             x = F.conv2d(x, kernel.view(1, 1, 1, -1))
             x = F.pad(x, (0, 0, half, half), mode="reflect")

@@ -124,8 +124,7 @@ def run_color(args):
     """One ISP JSON per chart image (``<serial>.json``): the chart detected,
     black level, white balance and CCM solved, written over
     ``--base_isp_json``, and the DeltaE of the corrected patch medians
-    logged. Images are read by the package's codecs (PNG, JPEG); a TIFF
-    chart raises, naming the file."""
+    logged. Images are read by the package's codecs (PNG, JPEG, TIFF)."""
     device = resolve_device(args.device)
     os.makedirs(args.output_isp_dir, exist_ok=True)
     for name in sorted(os.listdir(args.charts_dir)):

@@ -5,15 +5,17 @@ per-stage getCurrTimeSec bracketing, util/SystemUtil.h:63-65,
 TestRenderStereoPanorama.cpp:963-971; the flow .bin layout of
 util/CvUtil.cpp:159-199).
 
-Images are PNG or JPEG, read and written by the package's own codecs.
-PNG, on ``zlib`` and ``struct``: 8 or 16 bits per sample; grey, RGB or
-RGBA; every scanline filter on read; no interlace. JPEG (``.jpg``,
+Images are PNG, JPEG or TIFF, read and written by the package's own
+codecs. PNG, on ``zlib`` and ``struct``: 8 or 16 bits per sample; grey,
+RGB or RGBA; every scanline filter on read; no interlace. JPEG (``.jpg``,
 ``.jpeg``; ``cli/jpeg.py``): baseline, quality 95 and 4:2:0 chroma as
-OpenCV writes by default, 8 bits, grey or RGB (alpha is dropped). Any
-other file raises ``ValueError``. The arrays are those of the reference's
-OpenCV reader and writer after its BGR <-> RGB reordering, so files
-written by either package read the same in both (JPEG up to its
-decoder's rounding).
+OpenCV writes by default, 8 bits, grey or RGB (alpha is dropped). TIFF
+(``.tif``, ``.tiff``; ``cli/tiff.py``): baseline strips or tiles,
+uncompressed, LZW, Deflate or PackBits on read, Deflate on write; 8 or 16
+bits; grey, RGB or RGBA. Any other file raises ``ValueError``. The arrays
+are those of the reference's OpenCV reader and writer after its BGR <->
+RGB reordering, so files written by either package read the same in both
+(JPEG up to its decoder's rounding).
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from ..utils.math_util import disable_tf32
 from .jpeg import read_jpeg, write_jpeg
+from .tiff import read_tiff, write_tiff
 
 log = logging.getLogger("surround360_tpu_torch")
 
@@ -55,6 +59,7 @@ def resolve_device(name: str) -> torch.device:
         )
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {name}")
+    disable_tf32()
     return device
 
 
@@ -88,17 +93,19 @@ class StageTimer:
         return "\n".join(lines)
 
 
+_FORMATS = {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".tif": "tiff", ".tiff": "tiff"}
+
+
 def _image_format(path: str) -> str:
-    """"png" or "jpeg" by the file's extension; anything else raises."""
+    """"png", "jpeg" or "tiff" by the file's extension; anything else
+    raises."""
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        return "png"
-    if ext in (".jpg", ".jpeg"):
-        return "jpeg"
-    raise ValueError(
-        f"unsupported image format {ext or '(no extension)'!r}: only PNG and "
-        f"JPEG are supported: {path}"
-    )
+    if ext not in _FORMATS:
+        raise ValueError(
+            f"unsupported image format {ext or '(no extension)'!r}: only PNG, "
+            f"JPEG and TIFF are supported: {path}"
+        )
+    return _FORMATS[ext]
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -205,12 +212,19 @@ def read_png(path: str) -> np.ndarray:
     return rows.reshape(H, W, C)
 
 
-def read_image_rgba(path: str) -> np.ndarray:
-    """PNG or JPEG -> (4, H, W) float32 RGBA in [0,1]; grey is copied to
-    R, G, B and a missing alpha is 1."""
+def read_image(path: str) -> np.ndarray:
+    """PNG, JPEG or TIFF -> (H, W, C) uint8 or uint16 samples in file
+    order (grey, RGB or RGBA)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    img = read_png(path) if _image_format(path) == "png" else read_jpeg(path)
+    reader = {"png": read_png, "jpeg": read_jpeg, "tiff": read_tiff}[_image_format(path)]
+    return reader(path)
+
+
+def read_image_rgba(path: str) -> np.ndarray:
+    """PNG, JPEG or TIFF -> (4, H, W) float32 RGBA in [0,1]; grey is
+    copied to R, G, B and a missing alpha is 1."""
+    img = read_image(path)
     scale = 255.0 if img.dtype == np.uint8 else 65535.0
     img = img.astype(np.float32) / scale
     if img.shape[-1] == 1:
@@ -221,8 +235,9 @@ def read_image_rgba(path: str) -> np.ndarray:
 
 
 def write_image(path: str, img, bit_depth: int = 8) -> None:
-    """(1|3|4, H, W) float [0,1] -> PNG of 8 or 16 bits per sample, or
-    an 8-bit JPEG of quality 95 (grey or RGB; alpha is dropped)."""
+    """(1|3|4, H, W) float [0,1] -> PNG or TIFF (Deflate) of 8 or 16 bits
+    per sample, or an 8-bit JPEG of quality 95 (grey or RGB; alpha is
+    dropped)."""
     fmt = _image_format(path)
     if bit_depth not in (8, 16) or (fmt == "jpeg" and bit_depth != 8):
         raise ValueError(f"bit_depth {bit_depth} is not supported for {fmt.upper()}")
@@ -232,6 +247,8 @@ def write_image(path: str, img, bit_depth: int = 8) -> None:
     data = np.clip(hwc * scale + 0.5, 0, scale).astype(dtype)
     if fmt == "png":
         write_png(path, data)
+    elif fmt == "tiff":
+        write_tiff(path, data)
     else:
         write_jpeg(path, data[..., :3] if data.shape[-1] == 4 else data)
 

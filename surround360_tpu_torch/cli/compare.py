@@ -1,7 +1,7 @@
 """Compare rendered frames against expected/golden renders.
 
 Port of ``surround360_tpu/cli/compare.py``: PSNR / RMSE per frame pair of
-two directories (PNG or JPEG, read by the package's own codecs) and a
+two directories (PNG, JPEG or TIFF, read by the package's own codecs) and a
 summary; ``--min_psnr_db`` makes the exit code fail below a floor.
 
     python -m surround360_tpu_torch.cli.compare --dir_a out/eqr_frames \
@@ -35,7 +35,6 @@ def compare_images(a: np.ndarray, b: np.ndarray) -> dict:
 
 def compare_dirs(dir_a: str, dir_b: str) -> dict:
     names = sorted(set(os.listdir(dir_a)) & set(os.listdir(dir_b)))
-    # as the reference: a .tiff pair raises (the package reads PNG and JPEG)
     names = [n for n in names if n.lower().endswith((".png", ".jpg", ".tiff"))]
     if not names:
         raise ValueError("no common image files to compare")

@@ -2,8 +2,8 @@
 
 Port of ``surround360_tpu/cli/raw2rgb.py`` (reference:
 surround360_render/source/camera_isp/Raw2Rgb.cpp): loads a raw mosaic (an
-8- or 16-bit PNG; of a colour file its blue channel, the first one of the
-reference's BGR reader), runs the configured ISP on ``--device`` (``cuda``, the default, raises when there is no GPU),
+8- or 16-bit PNG or TIFF; of a colour file its blue channel, the first one
+of the reference's BGR reader), runs the configured ISP on ``--device`` (``cuda``, the default, raises when there is no GPU),
 writes the RGB result, and optionally a DNG of the raw with the ISP's CCM
 and white balance in its metadata:
 
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..isp import isp_process, load_isp_config
-from .common import log, read_png, resolve_device, setup_logging, write_image
+from .common import log, read_image, resolve_device, setup_logging, write_image
 from .dng_helper import save_isp_dng
 
 
@@ -51,7 +51,7 @@ def main(argv=None):
     if args.disable_tone_curve:
         cfg = dataclasses.replace(cfg, disable_tone_curve=True)
 
-    raw = read_png(args.input_image_path)
+    raw = read_image(args.input_image_path)
     raw = raw[..., 2 if raw.shape[-1] >= 3 else 0]
     scale = 255.0 if raw.dtype == np.uint8 else 65535.0
     rawf = raw.astype(np.float32) / scale

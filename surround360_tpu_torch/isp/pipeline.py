@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.filters import iir_lowpass_2d
-from ..utils.math_util import bezier_curve
+from ..utils.math_util import bezier_curve, disable_tf32
 from .demosaic import (
     _Reflected,
     demosaic_bilinear,
@@ -394,8 +394,7 @@ def isp_process(
         raise TypeError("isp_process takes a torch.Tensor (it runs on its device)")
     if cfg.demosaic_filter not in _DEMOSAIC:
         raise ValueError(f"unknown demosaic filter: {cfg.demosaic_filter}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     dev = raw.device
     x = resize_input_binned(raw.float(), resize)
     H, W = x.shape[-2:]

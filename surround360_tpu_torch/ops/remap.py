@@ -31,6 +31,8 @@ from .fused_window import fused_window_sample
 
 __all__ = [
     "remap",
+    "remap_bilinear",
+    "remap_bicubic",
     "plan_static_remap",
     "remap_static_planned",
     "remap_static_banded",
@@ -100,6 +102,14 @@ def remap(
             idx = (iyc * W + ixc)[:, None, :].expand(-1, C, -1)
             out += w[:, None, :] * torch.gather(img_b, 2, idx)
     return out.reshape(batch + (C, Ho, Wo))
+
+
+def remap_bilinear(img: torch.Tensor, coords: torch.Tensor, border: str = "constant"):
+    return remap(img, coords, interpolation="bilinear", border=border)
+
+
+def remap_bicubic(img: torch.Tensor, coords: torch.Tensor, border: str = "constant"):
+    return remap(img, coords, interpolation="bicubic", border=border)
 
 
 def _plan_static_tiles(coords_np, H, W, tr, tc, pad_taps):

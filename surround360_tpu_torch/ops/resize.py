@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.math_util import disable_tf32
+
 __all__ = [
     "resize_bilinear",
     "resize_cubic",
@@ -132,6 +134,7 @@ def conv_separable_1d(img: torch.Tensor, kernel_np, boundary: str, axis: int):
     lead = moved.shape[:-1]
     n = moved.shape[-1]
     flat = moved.reshape(-1, 1, n)
+    disable_tf32()
     if r > 0:
         flat = F.pad(flat, (r, r), mode="circular" if boundary == "wrap" else "reflect")
     out = F.conv1d(flat, k.view(1, 1, -1))
@@ -200,6 +203,7 @@ def _double_axis_cubic(img: torch.Tensor, axis: int):
     lead = moved.shape[:-1]
     n = moved.shape[-1]
     padded = F.pad(moved.reshape(-1, 1, n), (2, 2), mode="replicate")
+    disable_tf32()
 
     def phase(kernel, off):
         k = torch.as_tensor(kernel, device=img.device).view(1, 1, -1)

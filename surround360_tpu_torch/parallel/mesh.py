@@ -41,6 +41,7 @@ from ..render.panorama import (
     _render_ring_range,
     _stitch_ring,
 )
+from ..utils.math_util import disable_tf32
 
 __all__ = ["make_render_mesh", "shard_frame_batch", "sharded_render_step"]
 
@@ -209,9 +210,7 @@ def sharded_render_step(ctx: RenderContext, mesh: RenderMesh, use_temporal: bool
     cam_sharding = Sharding(mesh, ("data", "ring"))
 
     def step(frames_side, frames_top, frames_bottom, state):
-        # render_frame's precision: no TF32 (the reference is float32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        disable_tf32()  # render_frame's precision (the reference is float32)
         sharded = shard_frame_batch(mesh, frames_side)
         F = sharded.num_frames
         c = F // dp

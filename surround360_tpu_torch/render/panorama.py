@@ -58,7 +58,7 @@ from ..ops.warp import (
     spherical_warp_for_camera,
 )
 from ..ops.window_sampler import sample_displaced, sample_displaced_residual
-from ..utils.math_util import ramp
+from ..utils.math_util import disable_tf32, ramp
 from ..views.novel_view import lazy_warp_columns, prepare_pair_flows, render_chunk_pair
 
 __all__ = [
@@ -662,8 +662,7 @@ def render_frame(
     --save_debug_images intermediates (TestRenderStereoPanorama.cpp:177-185,
     :792-801), and takes the poles one at a time so that each pole's warped
     layer exists."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     state = state or {}
 
     projections = _project_side_cameras(ctx, side_images)

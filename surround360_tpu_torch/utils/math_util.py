@@ -1,15 +1,88 @@
-"""Math helpers (port of the renderer's and the ISP's use of
-``surround360_tpu/utils/math_util.py``; reference:
-surround360_render/source/util/MathUtil.h). :func:`ramp` takes torch
-tensors, as does :func:`median`; the Bezier curves are host precompute
-on numpy arrays."""
+"""Math helpers (port of ``surround360_tpu/utils/math_util.py``;
+reference: surround360_render/source/util/MathUtil.h). The reference's
+``xp=`` switch between numpy and jax.numpy becomes a dispatch on the
+argument's type: :func:`clamp`, :func:`reflect`, :func:`wrap` and
+:func:`gaussian_approx` take torch tensors or numpy arrays (and scalars,
+as numpy), :func:`ramp` and :func:`median` take tensors; the Bezier
+curves are host precompute on numpy arrays. :func:`disable_tf32` holds
+the port's float32 precision."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["ramp", "lerp", "bezier_curve", "bezier_curve_batch", "median"]
+__all__ = [
+    "clamp",
+    "lerp",
+    "bilerp",
+    "reflect",
+    "wrap",
+    "ramp",
+    "to_radians",
+    "to_degrees",
+    "gaussian_approx",
+    "bezier_curve",
+    "bezier_curve_batch",
+    "median",
+    "disable_tf32",
+]
+
+
+def disable_tf32() -> None:
+    """Float32 products and convolutions in float32, not TF32: the
+    reference computes in float32, and torch's default lets cuDNN run
+    float32 convolutions in TF32. Called by every entry point and every
+    function that runs a float32 product or convolution on the device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def clamp(x, lo, hi):
+    """Clamp x into [lo, hi] (MathUtil.h: clamp): min(max(x, lo), hi)."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, lo, hi)
+    return np.minimum(np.maximum(x, lo), hi)
+
+
+def bilerp(x00, x10, x01, x11, tx, ty):
+    """Bilinear interpolation of 4 corner values (MathUtil.h: bilerp)."""
+    return lerp(lerp(x00, x10, tx), lerp(x01, x11, tx), ty)
+
+
+def reflect(x, n):
+    """Reflecting (mirror) boundary fold of x into [0, n) (MathUtil.h:
+    reflect): -1 -> 0, n -> n - 1; exact for x in [-n, 2n)."""
+    where = torch.where if isinstance(x, torch.Tensor) else np.where
+    x = where(x < 0, -x - 1, x)
+    return where(x >= n, 2 * n - 1 - x, x)
+
+
+def wrap(x, n):
+    """Periodic boundary fold of x into [0, n) (MathUtil.h: wrap), the
+    floored modulo (the result has the sign of n)."""
+    if isinstance(x, torch.Tensor):
+        return torch.remainder(x, n)
+    return np.mod(x, n)
+
+
+def to_radians(deg):
+    return deg * (np.pi / 180.0)
+
+
+def to_degrees(rad):
+    return rad * (180.0 / np.pi)
+
+
+def gaussian_approx(x, mean, std):
+    """Cubic approximation of a gaussian bump (the reference's
+    GaussianApproximation functor, MathUtil.h:148-184): 1 at ``mean``,
+    falling to 0 at +-2 std, as (1 - smoothstep)^2, without
+    transcendentals."""
+    absolute = torch.abs if isinstance(x, torch.Tensor) else np.abs
+    t = clamp(absolute(x - mean) / (2.0 * std), 0.0, 1.0)
+    s = 1.0 - t * t * (3.0 - 2.0 * t)  # 1 - smoothstep
+    return s * s
 
 
 def ramp(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

@@ -28,6 +28,8 @@ __all__ = [
     "combine_lazy_views",
     "render_chunk_pair",
     "prepare_pair_flows",
+    "generate_novel_view",
+    "combine_novel_views",
 ]
 
 # Halo sizes above which the lazy render samples through displacement-
@@ -244,3 +246,53 @@ def prepare_pair_flows(
         prev_img1=prev_overlap_l, use_temporal=use_temporal, site=site,
     )
     return flow_l_to_r, flow_r_to_l
+
+
+# the eager novel-view path (NovelView.cpp:27-99; the reference's optical
+# flow tests and flow-quality harness use it)
+
+
+def generate_novel_view(src, reverse_flow, t: float):
+    """Shifted view at time t: ``src`` (B, C, H, W) sampled bicubically at
+    p + t * reverse_flow, constant border (generateNovelViewSimpleCvRemap,
+    NovelView.cpp:27-45)."""
+    H, W = src.shape[-2:]
+    gy, gx = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=src.device),
+        torch.arange(W, dtype=torch.float32, device=src.device),
+        indexing="ij",
+    )
+    coords = torch.stack([gx[None] + reverse_flow[:, 0] * t,
+                          gy[None] + reverse_flow[:, 1] * t], dim=1)
+    return remap(src, coords, interpolation="bicubic", border="constant")
+
+
+def combine_novel_views(view_l, blend_l, view_r, blend_r, flow_l_to_r, flow_r_to_l):
+    """Eager blend of two (B, 4, H, W) views (combineNovelViews,
+    NovelView.cpp:47-99): a softmax of the blend weights sharpened by the
+    alphas and the flow magnitudes, applied as far as the colours differ
+    (the deghost tanh); kColorDiffCoef = 10, kSoftmaxSharpness = 10,
+    kFlowMagCoef = 100."""
+    k_flow_mag_coef = 100.0
+    k_sharpness = 10.0
+    k_color_diff_coef = 10.0
+    W_img = view_l.shape[-1]
+    a_l = view_l[:, 3]
+    a_r = view_r[:, 3]
+    mag_lr = torch.sqrt(flow_l_to_r[:, 0] ** 2 + flow_l_to_r[:, 1] ** 2) / W_img
+    mag_rl = torch.sqrt(flow_r_to_l[:, 0] ** 2 + flow_r_to_l[:, 1] ** 2) / W_img
+    color_diff = torch.sum(torch.abs(view_l[:, :3] - view_r[:, :3]), dim=1)
+    deghost = torch.tanh(color_diff * k_color_diff_coef)
+    exp_l = torch.exp(k_sharpness * blend_l * a_l * (1.0 + k_flow_mag_coef * mag_rl))
+    exp_r = torch.exp(k_sharpness * blend_r * a_r * (1.0 + k_flow_mag_coef * mag_lr))
+    sum_exp = exp_l + exp_r + 1e-5
+    w_l = blend_l + deghost * (exp_l / sum_exp - blend_l)
+    w_r = blend_r + deghost * (exp_r / sum_exp - blend_r)
+    has_l, has_r = a_l > 0, a_r > 0
+    both = (has_l & has_r)[:, None]
+    blended = view_l[:, :3] * w_l[:, None] + view_r[:, :3] * w_r[:, None]
+    one = torch.where(has_l[:, None], view_l[:, :3],
+                      torch.where(has_r[:, None], view_r[:, :3], 0.0))
+    rgb = torch.where(both, blended, one)
+    alpha = (has_l | has_r).to(view_l.dtype)
+    return torch.cat([rgb, alpha[:, None]], dim=1)

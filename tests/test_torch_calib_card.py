@@ -1,7 +1,13 @@
 """Calibration on the card against the same calls on the CPU: the bundle
 adjuster, its residuals and Jacobians, the ORB matcher and the vignetting
-sweep. Every case needs CUDA and skips elsewhere; the file imports no JAX,
-so it runs on the card's machine (README: the GPU pytest command)."""
+sweep, also in a fresh process that starts from torch's TF32 defaults; and
+raw2rgb on the card reading a TIFF raw as it reads the PNG. Every case
+needs CUDA and skips elsewhere; the file imports no JAX, so it runs on the
+card's machine (README: the GPU pytest command)."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -88,3 +94,49 @@ def test_vignetting_card_matches_cpu():
     fits = [fit_vignetting(*out[1], (n, n), device=d) for d in ("cuda", "cpu")]
     np.testing.assert_allclose(fits[0].rolloff_h, fits[1].rolloff_h, rtol=0, atol=1e-6)
     np.testing.assert_allclose(fits[0].rolloff_v, fits[1].rolloff_v, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_orb_and_vignetting_from_torch_defaults():
+    """The ORB and vignetting cases in a fresh process where nothing set
+    the TF32 flags first (torch lets cuDNN run float32 convolutions in
+    TF32 by default): the library turns TF32 off itself, so the card still
+    equals the CPU within the same bounds."""
+    _cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, torch\n"
+        "assert torch.backends.cudnn.allow_tf32, 'torch default'\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_calib_card as t\n"
+        "t.test_orb_card_matches_cpu()\n"
+        "t.test_vignetting_card_matches_cpu()\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.gpu
+def test_raw2rgb_tiff_raw_on_card_equals_png(tmp_path):
+    import json
+
+    from surround360_tpu_torch.cli import common, raw2rgb
+    from surround360_tpu_torch.cli.tiff import write_tiff
+    from surround360_tpu_torch.isp.pipeline import IspConfig
+
+    _cuda()
+    raw = np.random.default_rng(7).integers(0, 65536, (256, 320, 1)).astype(np.uint16)
+    write_tiff(str(tmp_path / "raw.tif"), raw)
+    common.write_png(str(tmp_path / "raw.png"), raw)
+    isp = tmp_path / "isp.json"
+    isp.write_text(json.dumps(IspConfig(bayer_pattern="GBRG", bits_per_pixel=12).to_json()))
+    outs = []
+    for ext in ("tif", "png"):
+        out = str(tmp_path / f"rgb_{ext}.png")
+        raw2rgb.main(["--input_image_path", str(tmp_path / f"raw.{ext}"),
+                      "--output_image_path", out, "--isp_config_path", str(isp),
+                      "--output_bpp", "16"])
+        outs.append(common.read_png(out))
+    np.testing.assert_array_equal(outs[0], outs[1])

@@ -179,22 +179,27 @@ def test_color_matches_jax(tmp_path):
 
 
 def test_color_tiff_chart_raises(tmp_path):
-    """A .tif chart: the reference reads it through OpenCV; the port's
-    codecs read PNG and JPEG only, and it raises naming the file."""
+    """A .tif chart written by OpenCV: the reference reads it through
+    OpenCV, the port through its own TIFF codec (it raised before the port
+    read TIFF); both write the chart's JSON, equal within the solve's
+    bound (the JAX CLI run with x64, as in test_color_matches_jax)."""
     import cv2
+    import jax as jax_module
 
     charts = tmp_path / "charts"
     charts.mkdir()
     img, _ = cs.render_chart(cs.chart_raw_colors(), 640, 1.5, rotation_deg=3.0, seed=3)
     bgr = np.moveaxis(img, 0, -1)[..., ::-1]
     cv2.imwrite(str(charts / "cam0.tif"), (bgr * 65535 + 0.5).astype(np.uint16))
-    jax_calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
-                        str(tmp_path / "jax")])
-    assert os.path.exists(tmp_path / "jax" / "cam0.json")
-    with pytest.raises(ValueError, match=r"unsupported image format '\.tif'.*cam0\.tif"):
-        calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
-                        str(tmp_path / "port"), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "port" / "cam0.json")
+    with jax_module.enable_x64(True):
+        jax_calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
+                            str(tmp_path / "jax")])
+    calibrate.main(["color", "--charts_dir", str(charts), "--output_isp_dir",
+                    str(tmp_path / "port"), "--device", "cpu"])
+    got, got_v = _color_json(tmp_path / "port" / "cam0.json")
+    want, want_v = _color_json(tmp_path / "jax" / "cam0.json")
+    assert got == want
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=COLOR_JSON_TOL)
 
 
 @pytest.mark.parametrize("sub", ["geometric", "vignetting", "color"])

@@ -115,8 +115,8 @@ def test_png_grey_and_unsupported(tmp_path):
     path = str(tmp_path / "g.png")
     TC.write_image(path, grey, bit_depth=16)
     np.testing.assert_array_equal(TC.read_image_rgba(path), JC.read_image_rgba(path))
-    with pytest.raises(ValueError, match="unsupported image format '.tiff'"):
-        TC.write_image(str(tmp_path / "x.tiff"), grey)
+    with pytest.raises(ValueError, match="unsupported image format '.bmp'"):
+        TC.write_image(str(tmp_path / "x.bmp"), grey)
     bad = str(tmp_path / "interlaced.png")
     blob = bytearray(open(path, "rb").read())
     blob[28] = 1  # IHDR interlace byte (its CRC is not checked)

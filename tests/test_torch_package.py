@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "surround360_tpu_torch.isp.demosaic",
     "surround360_tpu_torch.isp.pipeline",
     "surround360_tpu_torch.cli.common",
+    "surround360_tpu_torch.cli.tiff",
     "surround360_tpu_torch.cli.jpeg",
     "surround360_tpu_torch.cli.preview",
     "surround360_tpu_torch.cli.compare",
@@ -68,6 +69,8 @@ SLICE_MODULES = [
     "surround360_tpu_torch.benchmarks.preset_quality",
     "surround360_tpu_torch.benchmarks.flow_quality",
     "surround360_tpu_torch.benchmarks.trace_grid_economics",
+    "surround360_tpu_torch.bench",
+    "surround360_tpu_torch.graft_entry",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,18 +131,28 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
 
 
 def test_color_and_mesh_entry_points_default_to_cuda(monkeypatch):
-    """The colour calibration and the mesh run on the card unless the
-    caller asks for the CPU: the library functions' device defaults,
-    calibrate color's --device, and make_render_mesh() over the visible
-    CUDA devices, which raises without one."""
+    """The colour calibration, the mesh, the bench and the root entry's
+    counterpart run on the card unless the caller asks for the CPU: the
+    library functions' device defaults, calibrate color's and the bench's
+    --device, and make_render_mesh() over the visible CUDA devices, which
+    raises without one."""
     import inspect
 
+    from surround360_tpu_torch import bench, graft_entry
     from surround360_tpu_torch.calib import color
     from surround360_tpu_torch.cli import calibrate
     from surround360_tpu_torch.parallel import make_render_mesh
 
-    for fn in (color.detect_color_chart, color.solve_isp_color_params):
+    for fn in (color.detect_color_chart, color.solve_isp_color_params,
+               graft_entry.entry, graft_entry.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(bench, "_install_watchdog", lambda seconds: None)
+    monkeypatch.setattr(bench, "_preset_bench", lambda preset, device: (1.0, str(device)))
+    if torch.cuda.is_available():
+        bench.main([])
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main([])
     seen = {}
     monkeypatch.setattr(calibrate, "run_color", lambda args: seen.update(vars(args)))
     calibrate.main(["color", "--charts_dir", "charts", "--output_isp_dir", "isp"])
@@ -147,6 +160,51 @@ def test_color_and_mesh_entry_points_default_to_cuda(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_render_mesh()
+
+
+def test_every_entry_point_leaves_tf32_off():
+    """Starting from torch's defaults (cuDNN may run float32 convolutions
+    in TF32), resolve_device and the public callers of every convolution
+    and float32 product site each leave both TF32 flags off: the resize's
+    two convolution paths, the ORB smoothing, the vignetting blur, the ISP,
+    render_frame and the mesh's step."""
+    code = """
+import numpy as np, torch
+from torch.backends import cuda, cudnn
+assert cudnn.allow_tf32, "torch's default"
+torch.set_num_threads(1)
+from surround360_tpu_torch.calib.orb import detect_and_compute, to_gray8
+from surround360_tpu_torch.calib.vignetting import acquire_vignetting_samples
+from surround360_tpu_torch.cli.common import resolve_device
+from surround360_tpu_torch.isp.pipeline import IspConfig, isp_process
+from surround360_tpu_torch.ops.filters import sharpen_iir
+from surround360_tpu_torch.ops.resize import gaussian_blur, resize_cubic
+from surround360_tpu_torch.graft_entry import _make_inputs
+from surround360_tpu_torch.parallel.mesh import make_render_mesh, sharded_render_step
+from surround360_tpu_torch.render.panorama import render_frame
+rng = np.random.default_rng(0)
+ctx, side, top, bottom = _make_inputs(0.03125, 140, 70, torch.device("cpu"))
+step = sharded_render_step(ctx, make_render_mesh([torch.device("cpu")]))[0]
+img = torch.from_numpy(rng.random((1, 8, 2600), dtype=np.float32))
+calls = {
+    "resolve_device": lambda: resolve_device("cpu"),
+    "gaussian_blur": lambda: gaussian_blur(img, 2.0),
+    "sharpen_iir": lambda: sharpen_iir(img, 1.25),
+    "resize_cubic": lambda: resize_cubic(img[..., :1300], (8, 2600)),
+    "orb": lambda: detect_and_compute(to_gray8(rng.random((96, 128)).astype(np.float32), "cpu")),
+    "vignetting": lambda: acquire_vignetting_samples([rng.random((64, 64))], device="cpu"),
+    "isp": lambda: isp_process(torch.rand(32, 32), IspConfig()),
+    "render_frame": lambda: render_frame(ctx, side, top, bottom),
+    "mesh": lambda: step(side[None], top[None], bottom[None], None),
+}
+for name, call in calls.items():
+    cuda.matmul.allow_tf32 = cudnn.allow_tf32 = True
+    call()
+    assert not cuda.matmul.allow_tf32 and not cudnn.allow_tf32, name
+print("OK", len(calls))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout + proc.stderr
 
 
 class _FakeCudaTensor(torch.Tensor):

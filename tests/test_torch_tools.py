@@ -117,6 +117,7 @@ def test_image_io_dispatches_on_extension(tmp_path):
     """write_image / read_image_rgba: .jpg and .jpeg through the port's
     codec (alpha dropped on write, 1 on read), the same arrays the JAX
     package's OpenCV reader returns for the file up to decoder rounding;
+    .tiff through the port's TIFF codec, read as the JAX package reads it;
     any other extension raises naming its format."""
     img = _image(24, 40, 4, seed=9).astype(np.float32).transpose(2, 0, 1) / 255.0
     for name in ("a.jpg", "b.JPEG"):
@@ -131,8 +132,11 @@ def test_image_io_dispatches_on_extension(tmp_path):
     TCOM.write_image(str(tmp_path / "g.jpg"), img[:1])
     g = TCOM.read_image_rgba(str(tmp_path / "g.jpg"))
     assert np.array_equal(g[0], g[1]) and np.array_equal(g[0], g[2])
-    with pytest.raises(ValueError, match="unsupported image format '.tiff'"):
-        TCOM.write_image(str(tmp_path / "x.tiff"), img)
+    TCOM.write_image(str(tmp_path / "x.tiff"), img, bit_depth=16)
+    np.testing.assert_array_equal(TCOM.read_image_rgba(str(tmp_path / "x.tiff")),
+                                  JCOM.read_image_rgba(str(tmp_path / "x.tiff")))
+    with pytest.raises(ValueError, match="unsupported image format '.bmp'"):
+        TCOM.write_image(str(tmp_path / "x.bmp"), img)
     with pytest.raises(ValueError, match="not supported for JPEG"):
         TCOM.write_image(str(tmp_path / "x.jpg"), img, bit_depth=16)
 
