@@ -126,15 +126,26 @@ the run after phase 13, so that the measurements still print). Phases 14,
    (tests/test_calib_geometric.py); observations, seconds a pass and an LM
    iteration, peak memory. (b) the library at 2000 points, 0.5 px noise, 3
    passes on the card and the CPU: rows within 1e-6 rad and 1e-4 px, RMSE
-   in 0.2-1.5 px. (c) the matcher: the 17 simulator views of a
-   corner-rich scene (calibration_environment: tests/test_matches.py's
-   sinusoid scene gives ORB next to no keypoints at 2048 px; the count is
-   printed), match_frames over every pair with overlap >= 0.05, the traces
-   through the library with tests/test_matches.py's config (median < 0.7 x,
-   forward dots > 0.999); the keypoints and matches written to a
-   COLMAP-schema database, converted by colmap_db_to_matches_json, and the
-   CLI's --matches_json and --frames_dir routes giving the same rig within
-   1e-9.
+   in 0.2-1.5 px. (c) the matcher, OpenCV's ORB stage for stage: the 17
+   simulator views of a corner-rich scene (calibration_environment:
+   tests/test_matches.py's sinusoid scene gives ORB next to no keypoints
+   at 2048 px; the count is printed); detect_and_compute on the card equal
+   to the CPU's bit for bit (positions, descriptors, levels) on two of
+   those views; match_frames over every pair with overlap >= 0.05 (ms a
+   pair beside the learned-table matcher's), the traces through the
+   library with tests/test_matches.py's config (median < 0.7 x, forward
+   dots > 0.999);
+   then the reference's own loop (tests/test_matches.py: the 6-camera ring
+   at 512 px under the sinusoid scene, ring pairs matched on the card,
+   detect_and_compute card = CPU on its six views, the library on the
+   card: traces > 30, median < 0.7 x, min forward dot > 0.999); the
+   keypoints and matches written to a COLMAP-schema database, converted by
+   colmap_db_to_matches_json, and the CLI's --matches_json and
+   --frames_dir routes each within 1e-9 of the library on that route's own
+   positions and each under the loop's median gate on its own traces; the
+   JSON route's positions (each float32 read back through its shortest
+   decimal string) within one float32 ulp at 2048 px of the frames
+   route's; the two refined rigs' differences printed.
 20. vignetting: 100 frames of 2048x2048 16-bit PNG (a grey square on a
    10x10 grid under a known separable Bezier rolloff, with noise); the
    library on the card and the CPU (acquisition ms a frame, fit seconds;
@@ -268,7 +279,9 @@ NOISE_ROT_TOL = 1e-6  # rad: card vs CPU, refined rotations
 NOISE_PX_TOL = 1e-4  # px: card vs CPU, principal point and focal length
 MATCH_PERTURB = 0.004  # (c) rad, principal point kept (tests/test_matches.py)
 CELL_DEGREES = 1.0  # (c) the calibration scene's large cells at 2048 px
-CLI_AGREE = 1e-9  # (c) --frames_dir vs --matches_json refined rigs, max-abs
+CLI_AGREE = 1e-9  # (c) each CLI route vs the library on its positions, max-abs
+ROUTE_POSITIONS = 2.0**-12  # (c) one float32 ulp at 2048 px: JSON positions vs float32's
+ORB_PAIR_MS_LEARNED = 72.9  # (c) ms a pair of the former matcher (its own learned BRIEF table)
 # phase 20: a vignetting sweep, SWEEP_GRID x SWEEP_GRID target positions
 SWEEP_SIZE = 2048
 SWEEP_GRID = 10
@@ -1548,6 +1561,80 @@ def calibration_environment(direction, cell_degrees=CELL_DEGREES):
     return np.stack([grey] * 3, axis=-1)
 
 
+def sinusoid_environment(direction):
+    """tests/test_matches.py's scene: three checker sinusoids of unrelated
+    frequencies, aperiodic enough that ORB's matches do not alias."""
+    from surround360_tpu_torch.capture import checker_sinusoid_environment
+
+    return (0.5 * checker_sinusoid_environment(direction, sharpness=23.7)
+            + 0.3 * checker_sinusoid_environment(direction, sharpness=57.1)
+            + 0.2 * checker_sinusoid_environment(direction, sharpness=118.9))
+
+
+def reference_loop_rig():
+    """tests/test_matches.py's rig: the 6-camera 120 deg ring at 0.25
+    scale (512 px)."""
+    from surround360_tpu_torch.geometry.rig import make_ring_rig
+
+    return make_ring_rig(num_side_cameras=6, side_fov_degrees=120.0).rescaled(0.25)
+
+
+def ring_pairs(rig, views, matcher):
+    """Side cameras cam1..cam6 matched with their ring neighbour, as the
+    reference's loop does (pairs with fewer than 8 matches left out):
+    (keypoints, matches, right, wrong), a match being right within 2 px of
+    the true correspondence."""
+    from surround360_tpu_torch.geometry import camera as C
+
+    keypoints, matches, right, wrong = {}, [], 0, 0
+    for i in range(1, 7):
+        id_a, id_b = f"cam{i}", f"cam{1 + i % 6}"
+        ia, ib = rig.ids.index(id_a), rig.ids.index(id_b)
+        pa, pb = matcher(views[ia][:3], views[ib][:3])
+        if len(pa):
+            far = C.pixel_to_rig_near_infinity(rig.cameras[ia], pa)
+            err = np.linalg.norm(C.world_to_pixel(rig.cameras[ib], far) - pb, axis=1)
+            right += int((err < 2).sum())
+            wrong += int((err >= 2).sum())
+        if len(pa) < 8:
+            continue
+        base_a = len(keypoints.setdefault(id_a, np.zeros((0, 2))))
+        base_b = len(keypoints.setdefault(id_b, np.zeros((0, 2))))
+        keypoints[id_a] = np.concatenate([keypoints[id_a], pa])
+        keypoints[id_b] = np.concatenate([keypoints[id_b], pb])
+        matches.append((id_a, id_b, np.stack(
+            [base_a + np.arange(len(pa)), base_b + np.arange(len(pb))], axis=1)))
+    return keypoints, matches, right, wrong
+
+
+def match_config():
+    """tests/test_matches.py's config: intrinsics locked, as its sparse
+    ring graph cannot hold them."""
+    from surround360_tpu_torch.calib.geometric import GeometricCalibrationConfig
+
+    return GeometricCalibrationConfig(passes=4, lm_iterations=10, outlier_factor=3.0,
+                                      lock_focal=True, lock_distortion=True,
+                                      lock_principal=True)
+
+
+def recover(rig, keypoints, matches, device="cpu"):
+    """The reference's match -> calibrate loop on the traces, its 0.004 rad
+    perturbation (principal point kept) and locked config: (traces, report
+    before, report after, refined rig)."""
+    from surround360_tpu_torch.calib.geometric import (
+        calibrate_geometric, perturb_rig, reprojection_errors, reprojection_report,
+        triangulate_points)
+    from surround360_tpu_torch.calib.matches import assemble_traces
+
+    obs = assemble_traces(keypoints, matches, {f"cam{i}": rig.ids.index(f"cam{i}")
+                                               for i in range(1, 7)})
+    bad = perturb_rig(rig, rotation_amount=MATCH_PERTURB, principal_amount=0.0)
+    before = reprojection_report(
+        reprojection_errors(bad, obs, triangulate_points(bad, obs, device), device))
+    refined, after = calibrate_geometric(bad, obs, match_config(), device=device)
+    return obs.num_points, before, after, refined
+
+
 def _render_views(rig, env_fn):
     """render_camera_views, one camera a thread (numpy releases the GIL)."""
     from surround360_tpu_torch.capture import render_camera_views
@@ -1698,19 +1785,42 @@ def write_colmap_db(path, ids, keypoints, matches):
         conn.close()
 
 
+def _orb_card_vs_cpu(grey_u8, device_name):
+    """detect_and_compute on ``device_name`` and on the CPU of one uint8
+    image: (keypoints, card ms, CPU s); raises unless positions,
+    descriptors and levels are equal bit for bit."""
+    import torch
+
+    from surround360_tpu_torch.calib.orb import detect_and_compute
+
+    card = detect_and_compute(grey_u8.to(device_name))
+    t0 = time.perf_counter()
+    cpu = detect_and_compute(grey_u8.cpu())
+    cpu_s = time.perf_counter() - t0
+    on_card = device_name.startswith("cuda")
+    ms = cuda_ms(lambda: detect_and_compute(grey_u8.to(device_name)), reps=3) if on_card \
+        else 1e3 * cpu_s
+    for name, a, b in zip(card._fields, card, cpu):
+        if a.shape != b.shape or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"detect_and_compute {name}: {device_name} != CPU "
+                                 f"({tuple(a.shape)} vs {tuple(b.shape)})")
+    return len(cpu.points), ms, cpu_s
+
+
 def phase_calib_match(root, rig, device_name="cuda"):
-    """19c: the built-in matcher on the rig's simulator views, the library
-    gate of tests/test_matches.py on its traces, and the CLI's two routes
-    (--frames_dir, and --matches_json through a COLMAP database) agreeing."""
+    """19c: the built-in matcher (OpenCV's ORB, stage for stage) on the
+    rig's simulator views, card against CPU, the library gate of
+    tests/test_matches.py on its traces, the reference's own loop on its
+    512 px sinusoid scene, and the CLI's two routes (--frames_dir, and
+    --matches_json through a COLMAP database) each against the library."""
     import torch
 
     from surround360_tpu_torch.calib.geometric import (
         GeometricCalibrationConfig, calibrate_geometric, perturb_rig,
         reprojection_errors, reprojection_report, triangulate_points)
     from surround360_tpu_torch.calib.matches import (
-        assemble_traces, colmap_db_to_matches_json)
+        assemble_traces, colmap_db_to_matches_json, load_matches_json, match_keypoints)
     from surround360_tpu_torch.calib.orb import detect_and_compute, to_gray8
-    from surround360_tpu_torch.capture import checker_sinusoid_environment
     from surround360_tpu_torch.cli.calibrate import match_frames
     from surround360_tpu_torch.cli.common import read_image_rgba, write_image
     from surround360_tpu_torch.geometry.rig import Rig, load_rig, save_rig
@@ -1727,19 +1837,21 @@ def phase_calib_match(root, rig, device_name="cuda"):
     del views
 
     # the matcher on tests/test_matches.py's sinusoid scene, one side camera
-    def sinusoids(d):
-        return (0.5 * checker_sinusoid_environment(d, sharpness=23.7)
-                + 0.3 * checker_sinusoid_environment(d, sharpness=57.1)
-                + 0.2 * checker_sinusoid_environment(d, sharpness=118.9))
-
-    side = _render_views(Rig([rig.cameras[1]], [rig.ids[1]], ["side camera"]), sinusoids)[0]
-    sinusoid_kp = len(detect_and_compute(to_gray8(side[:3], device_name))[0])
+    side = _render_views(Rig([rig.cameras[1]], [rig.ids[1]], ["side camera"]),
+                         sinusoid_environment)[0]
+    sinusoid_kp = len(detect_and_compute(to_gray8(side[:3], device_name)).points)
 
     bad = perturb_rig(rig, rotation_amount=MATCH_PERTURB, principal_amount=0.0)
     bad_json = os.path.join(root, "perturbed.json")
     save_rig(bad_json, bad)
     bad = load_rig(bad_json)
     images = {cid: read_image_rgba(os.path.join(frames, f"{cid}.png")) for cid in rig.ids}
+    same = []
+    for cid in rig.ids[1:3]:
+        n, ms, cpu_s = _orb_card_vs_cpu(to_gray8(images[cid][:3], "cpu"), device_name)
+        same.append(f"{cid} {n} keypoints, {ms:.2f} ms ({device_name}) vs {cpu_s:.3f} s (CPU)")
+    log(f"[19 geometric] detect_and_compute {device_name} == CPU bit for bit (positions, "
+        f"descriptors, levels) at {int(width)} px: " + "; ".join(same))
     on_card = device_name.startswith("cuda")
     if on_card:
         torch.cuda.synchronize()
@@ -1753,19 +1865,17 @@ def phase_calib_match(root, rig, device_name="cuda"):
         f"{int(width)} px rendered in {render_s:.1f} s (host, 8 threads); "
         f"{len(matches)} camera pairs matched (overlap >= 0.05, >= 8 matches) in "
         f"{match_s:.3f} s ({1e3 * match_s / max(len(matches), 1):.1f} ms a pair, both "
-        f"detections included), {n_matches} matches, {obs.num_points} traces, "
-        f"{len(obs.cam_idx)} observations; keypoints appended per image: "
-        + ", ".join(f"{cid} {len(kp)}" for cid, kp in keypoints.items())
+        f"detections included; the learned-table matcher {ORB_PAIR_MS_LEARNED} ms), "
+        f"{n_matches} matches, "
+        f"{obs.num_points} traces, {len(obs.cam_idx)} observations; keypoints appended "
+        "per image: " + ", ".join(f"{cid} {len(kp)}" for cid, kp in keypoints.items())
         + f"; keypoints on the sinusoid scene of tests/test_matches.py at this size "
         f"({rig.ids[1]}): {sinusoid_kp}")
 
-    cfg = GeometricCalibrationConfig(passes=4, lm_iterations=10, outlier_factor=3.0,
-                                     lock_focal=True, lock_distortion=True,
-                                     lock_principal=True)
     before = reprojection_report(reprojection_errors(
         bad, obs, triangulate_points(bad, obs, device_name), device_name))
     t0 = time.perf_counter()
-    refined, after = calibrate_geometric(bad, obs, cfg, device=device_name)
+    refined, after = calibrate_geometric(bad, obs, match_config(), device=device_name)
     solve_s = time.perf_counter() - t0
     dot = _min_forward_dot(rig, refined)
     log(f"[19 geometric]   library (tests/test_matches.py's config) in {solve_s:.3f} s: "
@@ -1773,6 +1883,26 @@ def phase_calib_match(root, rig, device_name="cuda"):
         f"observations kept {after['count']}; min forward dot vs truth {dot:.7f} (> 0.999)")
     if not after["median"] < 0.7 * before["median"] or not dot > 0.999:
         raise AssertionError(f"matcher loop: {before} -> {after}, dot {dot}")
+
+    # the reference's loop on its own scene (tests/test_matches.py)
+    small = reference_loop_rig()
+    small_views = _render_views(small, sinusoid_environment)
+    for cid in (f"cam{i}" for i in range(1, 7)):
+        _orb_card_vs_cpu(to_gray8(small_views[small.ids.index(cid)][:3], "cpu"), device_name)
+    t0 = time.perf_counter()
+    kp_small, m_small, right, wrong = ring_pairs(
+        small, small_views, lambda a, b: match_keypoints(a, b, device=device_name))
+    pairs_s = time.perf_counter() - t0
+    traces, before, after, refined = recover(small, kp_small, m_small, device_name)
+    dot = _min_forward_dot(small, refined)
+    log(f"[19 geometric] the reference's loop on its sinusoid scene ({len(small.cameras)} "
+        f"cameras, {int(small.cameras[1].resolution[0])} px; detect_and_compute "
+        f"{device_name} == CPU on cam1..cam6): 6 ring pairs in {pairs_s:.3f} s, {right} "
+        f"right / {wrong} wrong matches, {traces} traces; median {before['median']:.3f} -> "
+        f"{after['median']:.4f} px (ratio {after['median'] / before['median']:.4f} < 0.7), "
+        f"min forward dot {dot:.6f} (> 0.999)")
+    if not (traces > 30 and after["median"] < 0.7 * before["median"] and dot > 0.999):
+        raise AssertionError(f"reference loop: {traces} traces, {before} -> {after}, dot {dot}")
 
     db = os.path.join(root, "features.db")
     if os.path.exists(db):
@@ -1785,15 +1915,43 @@ def phase_calib_match(root, rig, device_name="cuda"):
         "geometric", "--rig_json", bad_json, "--matches_json", matches_json,
         "--output_json", out_json, "--device", device_name])
     out_frames = os.path.join(root, "refined_frames.json")
-    frames_s, _ = _calibrate_cli([
+    frames_s, frames_lines = _calibrate_cli([
         "geometric", "--rig_json", bad_json, "--frames_dir", frames,
         "--output_json", out_frames, "--device", device_name])
-    diff = _rig_fields_max_abs(load_rig(out_frames), load_rig(out_json))
+    # each route against the library on its own positions (the CLI's config),
+    # and against the reference loop's gate on its own traces
+    json_kp, json_matches = load_matches_json(matches_json)
+    routes = {
+        "--frames_dir": (out_frames, frames_lines, obs),
+        "--matches_json": (out_json, json_lines, assemble_traces(
+            json_kp, json_matches, {n: rig.ids.index(n[:-len(".png")]) for n in json_kp})),
+    }
+    gaps, medians = {}, {}
+    for route, (out, lines, route_obs) in routes.items():
+        lib, _ = calibrate_geometric(bad, route_obs, GeometricCalibrationConfig(),
+                                     device=device_name)
+        gaps[route] = _rig_fields_max_abs(load_rig(out), lib)
+        perturbed = reprojection_report(reprojection_errors(
+            bad, route_obs, triangulate_points(bad, route_obs, device_name), device_name))
+        medians[route] = (perturbed["median"], lines[-1][0]["median"])
+    pos_gap = max(float(np.abs(json_kp[f"{cid}.png"] - kp).max()) for cid, kp in keypoints.items())
+    fields = {f: max(float(np.abs(np.asarray(getattr(a, f), np.float64)
+                                  - np.asarray(getattr(b, f), np.float64)).max())
+                     for a, b in zip(load_rig(out_frames).cameras, load_rig(out_json).cameras))
+              for f in ("rotation", "principal", "focal", "distortion")}
     log(f"[19 geometric]   CLI --frames_dir {frames_s:.3f} s (matching included); "
-        f"--matches_json from a COLMAP database {json_s:.3f} s, final "
-        f"{json_lines[-1][0]}; the two refined rigs max-abs {diff:.3g} (<= {CLI_AGREE})")
-    if diff > CLI_AGREE:
-        raise AssertionError(f"--frames_dir vs --matches_json: {diff}")
+        f"--matches_json from a COLMAP database {json_s:.3f} s; each vs the library on its "
+        "own positions: " + ", ".join(f"{r} {g:.3g}" for r, g in gaps.items())
+        + f" (<= {CLI_AGREE}); median perturbed -> refined: "
+        + ", ".join(f"{r} {a:.3f} -> {b:.4f} px" for r, (a, b) in medians.items())
+        + f" (< 0.7 x); positions through the JSON strings move by <= {pos_gap:.3g} px "
+        f"(< {ROUTE_POSITIONS:.3g}, one float32 ulp at 2048 px); the two refined rigs "
+        "differ by " + ", ".join(f"{f} {v:.3g}" for f, v in fields.items())
+        + " (not bounded: the pairwise traces leave focal and principal point free to "
+        "drift, and the culls between passes amplify the positions' last bits)")
+    if (max(gaps.values()) > CLI_AGREE or pos_gap >= ROUTE_POSITIONS
+            or any(not b < 0.7 * a for a, b in medians.values())):
+        raise AssertionError(f"CLI routes: {gaps}, medians {medians}, positions {pos_gap}")
 
 
 def write_vignetting_sweep(dest, size=SWEEP_SIZE, grid=SWEEP_GRID, seed=0):

@@ -13,7 +13,11 @@ Ceres replaced by a Levenberg-Marquardt solver), in float64 on the device:
   point blocks eliminated), built without a loop over points: the
   camera-point coupling is scattered into a dense (points, cameras x 11,
   3) tensor ``W`` and the reduced camera system is ``B - W C^-1 W^T``, one
-  batched product;
+  batched product. Sums over observations accumulate in observation order
+  on every device (``index_put_`` with ``accumulate``: serial on the CPU,
+  sorted and not atomic on the card), so a run repeats bit for bit: the
+  culls between passes turn a last-bit difference into a different set of
+  observations;
 - pass structure as refine() (GeometricCalibration.cpp:794-895): pass 0
   locks position, focal and distortion, later passes optionally lock
   positions only; camera 0 is the gauge; outliers are culled before each
@@ -268,6 +272,15 @@ def triangulate_points(rig: Rig, obs: CalibrationObservations, device="cuda"):
 # --------------------------------------------------------------------------
 
 
+def _sum_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """(n, ...) sums of ``values`` rows by ``index``, added in row order on
+    every device: ``index_put_`` with ``accumulate`` runs serially on the
+    CPU and sorts on the card, where ``index_add_`` adds by atomics in no
+    fixed order."""
+    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    return out.index_put_((index,), values, accumulate=True)
+
+
 def _lm_solve(cam_params, points, data: _Observations, free, cfg):
     """Levenberg-Marquardt with the bundle-adjustment Schur complement:
     eliminate the block-diagonal 3x3 point blocks, solve the reduced
@@ -306,18 +319,13 @@ def _lm_solve(cam_params, points, data: _Observations, free, cfg):
         # locked columns selected away (not multiplied: NaN * 0 is NaN)
         Jc = torch.where(free_obs, Jc, torch.zeros_like(Jc))
 
-        B = torch.zeros(n_cams, N_PAR, N_PAR, dtype=f64, device=dev)
-        B.index_add_(0, ci, torch.einsum("mri,mrj->mij", Jc, Jc))
-        C = torch.zeros(n_pts, 3, 3, dtype=f64, device=dev)
-        C.index_add_(0, pi, torch.einsum("mri,mrj->mij", Jp, Jp))
-        gc = torch.zeros(n_cams, N_PAR, dtype=f64, device=dev)
-        gc.index_add_(0, ci, torch.einsum("mri,mr->mi", Jc, r))
-        gp = torch.zeros(n_pts, 3, dtype=f64, device=dev)
-        gp.index_add_(0, pi, torch.einsum("mri,mr->mi", Jp, r))
+        B = _sum_into(n_cams, ci, torch.einsum("mri,mrj->mij", Jc, Jc))
+        C = _sum_into(n_pts, pi, torch.einsum("mri,mrj->mij", Jp, Jp))
+        gc = _sum_into(n_cams, ci, torch.einsum("mri,mr->mi", Jc, r))
+        gp = _sum_into(n_pts, pi, torch.einsum("mri,mr->mi", Jp, r))
         E = torch.einsum("mri,mrj->mij", Jc, Jp)  # (M, 11, 3)
         # W[p, c] sums E over point p's observations in camera c
-        W = torch.zeros(n_pts * n_cams, N_PAR, 3, dtype=f64, device=dev)
-        W.index_add_(0, pair, E)
+        W = _sum_into(n_pts * n_cams, pair, E)
         W = W.view(n_pts, n_flat, 3)
 
         improved = False
@@ -339,7 +347,8 @@ def _lm_solve(cam_params, points, data: _Observations, free, cfg):
             dc[mask_flat] = dc_f
             dc = dc.view(n_cams, N_PAR)
             # back-substitute points: dp = -C^-1 (gp + sum_obs E^T dc)
-            rhs = gp.index_add(0, pi, torch.einsum("mij,mi->mj", E, dc[ci]))
+            rhs = gp.clone().index_put_((pi,), torch.einsum("mij,mi->mj", E, dc[ci]),
+                                        accumulate=True)
             dp = -torch.einsum("pkl,pl->pk", Cinv, rhs)
             new_cams = cam_params + dc
             new_pts = points + dp

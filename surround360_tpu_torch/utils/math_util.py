@@ -9,6 +9,8 @@ the port's float32 precision."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -26,6 +28,7 @@ __all__ = [
     "bezier_curve_batch",
     "median",
     "disable_tf32",
+    "fma_f32",
 ]
 
 
@@ -36,6 +39,23 @@ def disable_tf32() -> None:
     function that runs a float32 product or convolution on the device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add rounds
+    it, on any device: the product of two float32 values is exact in
+    float64; the float64 sum is made round-to-odd (TwoSum gives its error,
+    and an inexact sum with an even last bit steps one ulp toward the
+    exact value), so its rounding to float32 is that of the exact value."""
+    p = a.double() * b.double()
+    c = torch.as_tensor(c, dtype=torch.float64, device=p.device)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def clamp(x, lo, hi):

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from surround360_tpu_torch.calib import geometric as G
 from surround360_tpu_torch.calib.orb import detect_and_compute, orb_match, to_gray8
+from surround360_tpu_torch.capture import render_camera_views
 from surround360_tpu_torch.calib.vignetting import acquire_vignetting_samples, fit_vignetting
-from surround360_tpu_torch.geometry.rig import make_ring_rig
+from surround360_tpu_torch.geometry.rig import Rig, make_ring_rig
 
 
 def _cuda():
@@ -54,6 +56,21 @@ def test_bundle_adjustment_card_matches_cpu():
     assert card_rep["count"] == cpu_rep["count"]
 
 
+@pytest.mark.gpu
+def test_bundle_adjustment_repeats_bit_for_bit_on_card():
+    """Two runs on the card on the same inputs give the same rig: the sums
+    over observations do not go through atomics (a last-bit difference
+    would move the culls between passes)."""
+    _cuda()
+    rig = _small_rig()
+    obs, _ = G.generate_artificial_points(rig, 400, seed=6, noise_px=0.5)
+    bad = G.perturb_rig(rig, rotation_amount=0.003)
+    cfg = G.GeometricCalibrationConfig(passes=3, lm_iterations=8)
+    runs = [G._rig_to_params(G.calibrate_geometric(bad, obs, cfg, device="cuda")[0])
+            for _ in range(2)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
 def _texture():
     from scipy.ndimage import gaussian_filter
 
@@ -62,18 +79,51 @@ def _texture():
     return base[:, 20:320].astype(np.float32), base[:, 10:310].astype(np.float32)
 
 
+def _assert_card_equals_cpu(grey_u8: torch.Tensor):
+    """detect_and_compute on the card and on the CPU: positions,
+    descriptors and levels equal bit for bit, in the same order."""
+    card = detect_and_compute(grey_u8.cuda())
+    cpu = detect_and_compute(grey_u8.cpu())
+    assert len(cpu.points) > 0
+    for name, a, b in zip(cpu._fields, card, cpu):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+
+
 @pytest.mark.gpu
 def test_orb_card_matches_cpu():
-    """The shifted-texture case on the card, and the card's keypoints the
-    CPU's (rounding in the pyramid may move a few)."""
+    """The shifted-texture case on the card: its bounds, the grey levels
+    and the matches the CPU's, and every keypoint and descriptor the CPU's."""
     _cuda()
     a, b = _texture()
     pts_a, pts_b = orb_match(a[None], b[None], device="cuda")
     assert len(pts_a) > 20
     assert abs(np.median(pts_b[:, 0] - pts_a[:, 0]) - 10.0) < 1.0
-    card = {tuple(p) for p in detect_and_compute(to_gray8(a, "cuda"))[0].cpu().numpy()}
-    cpu = {tuple(p) for p in detect_and_compute(to_gray8(a, "cpu"))[0].numpy()}
-    assert len(card & cpu) >= 0.95 * max(len(card), len(cpu))
+    cpu_a, cpu_b = orb_match(a[None], b[None], device="cpu")
+    np.testing.assert_array_equal(np.sort(pts_a, 0), np.sort(cpu_a, 0))
+    np.testing.assert_array_equal(np.sort(pts_b, 0), np.sort(cpu_b, 0))
+    grey = to_gray8(a, "cpu")
+    assert torch.equal(to_gray8(a, "cuda").cpu(), grey)
+    _assert_card_equals_cpu(grey)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [f"cam{i}" for i in range(1, 7)] + ["noise2048"])
+def test_orb_features_card_equal_cpu(case):
+    """detect_and_compute on the card equals the CPU's bit for bit on
+    tests/test_matches.py's 512 px sinusoid scene (each side camera, its
+    RGB grey taken on each device) and on a 2048 x 2048 noise image."""
+    _cuda()
+    if case == "noise2048":
+        grey = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2048, 2048),
+                                                                   dtype=np.uint8))
+    else:
+        rig = cs.reference_loop_rig()
+        i = rig.ids.index(case)
+        view = render_camera_views(Rig([rig.cameras[i]], [case], ["side camera"]),
+                                   env_fn=cs.sinusoid_environment)[0][:3]
+        grey = to_gray8(view, "cpu")
+        assert torch.equal(to_gray8(view, "cuda").cpu(), grey)
+    _assert_card_equals_cpu(grey)
 
 
 @pytest.mark.gpu

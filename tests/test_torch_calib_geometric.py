@@ -225,3 +225,19 @@ def test_zero_rotation_camera_jacobian_repaired():
     assert cost0 == pytest.approx(jcost, rel=1e-4)
     _, _, cost1, _ = TG._lm_solve(cams, pts, data, torch.as_tensor(free), cfg)
     assert cost1 < 0.9 * cost0, (cost0, cost1)
+
+
+def test_sums_over_observations_in_observation_order():
+    """The normal equations' sums add each index's rows in row order, as
+    ``index_add_`` does on the CPU (on the card it adds by atomics; the
+    port's sum sorts instead), so a calibration repeats bit for bit."""
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(0, 17, 5000))
+    vals = torch.from_numpy(rng.standard_normal((5000, 11, 3)))
+    want = torch.zeros(17, 11, 3, dtype=torch.float64).index_add_(0, idx, vals)
+    assert torch.equal(TG._sum_into(17, idx, vals), want)
+    one = torch.from_numpy(rng.standard_normal((5000, 3)))
+    serial = torch.zeros(3, dtype=torch.float64)
+    for row in one[idx.numpy() == 4]:
+        serial = serial + row
+    assert torch.equal(TG._sum_into(17, idx, one)[4], serial)

@@ -4,9 +4,12 @@ and its own ORB matcher (calib/orb.py), on the CPU: the reference's cases
 package's, BRISK and AKAZE equal to the JAX package's where OpenCV is
 installed, and the simulator's match -> calibrate loop.
 
-The port's ORB is not OpenCV's (its BRIEF pattern is its own, learned as
-ORB learns one: calib/orb_pattern.py), so matches are held to outcomes,
-not to OpenCV's keypoints.
+The port's ORB computes what OpenCV's computes, stage for stage
+(tests/test_torch_orb.py holds each stage), so ``match_keypoints`` with
+ORB returns the JAX package's matches: the same (x_a, y_a, x_b, y_b) rows,
+compared as sorted arrays (OpenCV's keypoint order is its own). The
+reference's loop then runs on the reference's own sinusoid scene and
+passes its bounds, as it does on OpenCV's matches.
 """
 
 import json
@@ -24,9 +27,7 @@ from surround360_tpu_torch.calib.matches import (
     load_matches_json,
     match_keypoints,
 )
-from report_matcher import min_forward_dot, recover, ring_pairs, sinusoids
 from surround360_tpu_torch.capture import render_camera_views
-from surround360_tpu_torch.geometry.rig import make_ring_rig
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -121,15 +122,23 @@ def _shifted_texture():
     return base[:, 20:320], base[:, 10:310]  # +10 px shift
 
 
+def _sorted_rows(pts_a, pts_b) -> np.ndarray:
+    """(M, 4) rows (x_a, y_a, x_b, y_b) in lexicographic order."""
+    rows = np.concatenate([np.asarray(pts_a).reshape(-1, 2),
+                           np.asarray(pts_b).reshape(-1, 2)], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
 def test_orb_matches_shifted_texture():
-    """The reference's case on the port's ORB."""
+    """The reference's case on the port's ORB: its bounds, and the
+    positions OpenCV's ORB matches there."""
     a, b = _shifted_texture()
     pts_a, pts_b = match_keypoints(a[None], b[None], algorithm="ORB", device="cpu")
     assert len(pts_a) > 20
     dx = pts_b[:, 0] - pts_a[:, 0]
     assert abs(np.median(dx) - 10.0) < 1.0
-    # positions on the 1/16 px grid (calib/orb.py)
-    np.testing.assert_array_equal(pts_a * 16, np.round(pts_a * 16))
+    np.testing.assert_array_equal(_sorted_rows(pts_a, pts_b),
+                                  _sorted_rows(*JM.match_keypoints(a[None], b[None])))
 
 
 @pytest.mark.parametrize("algorithm", ["BRISK", "AKAZE"])
@@ -158,40 +167,71 @@ def test_opencv_algorithms_without_cv2_name_orb(monkeypatch):
 
 
 def _small_rig():
-    return make_ring_rig(num_side_cameras=6, side_fov_degrees=120.0).rescaled(0.25)
+    return cs.reference_loop_rig()
 
 
-def test_orb_against_opencv_on_the_reference_scene():
-    """On tests/test_matches.py's scene (512 px, ring neighbours) fewer than
-    half of OpenCV's ORB matches are right (44 of 100); the port's get 38 of
-    76 (tests/report_matcher.py). Held: the port finds at least half as many
-    right matches as OpenCV at no smaller a share of right ones than 0.8 x
-    OpenCV's."""
-    pytest.importorskip("cv2")
+@pytest.fixture(scope="module")
+def scene():
+    """tests/test_matches.py's scene: (rig, views) of the 6-camera ring at
+    0.25 scale (512 px) under three sinusoids."""
     rig = _small_rig()
-    views = render_camera_views(rig, env_fn=sinusoids)
-    _, _, right, wrong = ring_pairs(rig, views, lambda a, b: match_keypoints(a, b, device="cpu"))
-    _, _, cv_right, cv_wrong = ring_pairs(rig, views, JM.match_keypoints)
-    assert right >= 0.5 * cv_right, (right, cv_right)
-    assert right / (right + wrong) >= 0.8 * cv_right / (cv_right + cv_wrong), (
-        right, wrong, cv_right, cv_wrong)
+    return rig, render_camera_views(rig, env_fn=cs.sinusoid_environment)
+
+
+def _port_matcher(a, b):
+    return match_keypoints(a, b, device="cpu")
+
+
+@pytest.mark.parametrize("i", range(1, 7))
+def test_orb_against_opencv_on_the_reference_scene(scene, i):
+    """Each ring pair of tests/test_matches.py's loop (cam<i>, its
+    neighbour): the JAX package's matches, as sorted arrays."""
+    pytest.importorskip("cv2")
+    rig, views = scene
+    a = views[rig.ids.index(f"cam{i}")][:3]
+    b = views[rig.ids.index(f"cam{1 + i % 6}")][:3]
+    got = _sorted_rows(*_port_matcher(a, b))
+    np.testing.assert_array_equal(got, _sorted_rows(*JM.match_keypoints(a, b)))
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, got.astype(np.float32))  # OpenCV's float32 kp.pt
+
+
+def test_reference_loop_on_its_own_scene(scene):
+    """tests/test_matches.py::TestEndToEndMatchCalibrate on the port: the
+    sinusoid scene, ORB matches of the ring pairs, traces, the 0.004 rad
+    perturbation and the locked config; its bounds (traces > 30, median <
+    0.7 x the perturbed rig's, min forward dot > 0.999). On OpenCV's
+    matches, which the port's equal, the loop ends at 0.99924
+    (tests/report_matcher.py)."""
+    rig, views = scene
+    keypoints, matches, right, wrong = cs.ring_pairs(rig, views, _port_matcher)
+    traces, before, after, refined = cs.recover(rig, keypoints, matches)
+    assert traces > 30, traces
+    assert after["median"] < 0.7 * before["median"], (before, after)
+    assert cs._min_forward_dot(rig, refined) > 0.999
 
 
 def test_simulator_rig_recovery_via_matcher():
     """The reference's loop (simulator images -> ORB matches -> traces ->
     BA) with the port's matcher, its rig, perturbation, config and bounds,
-    on a corner-rich scene (chip_smoke.calibration_environment: grey cells
-    of 4 deg and 1.5 deg, the 1 deg cells of phase 19 at 512 px). On the
-    reference's sinusoid scene both matchers are wrong on about half their
-    matches (test above) and the outcome is a matter of which: the loop
-    ends at a min forward dot of 0.99924 on OpenCV's matches and 0.99585 on
-    the port's, against the bound 0.999 (tests/report_matcher.py)."""
+    on a corner-rich scene as well (chip_smoke.calibration_environment:
+    grey cells of 4 deg and 1.5 deg, the 1 deg cells of phase 19 at 512
+    px): every pair's matches are OpenCV's, and the loop passes."""
+    pytest.importorskip("cv2")
     rig = _small_rig()
     views = render_camera_views(rig, env_fn=lambda d: cs.calibration_environment(d, 4.0))
-    keypoints, matches, right, wrong = ring_pairs(
-        rig, views, lambda a, b: match_keypoints(a, b, device="cpu"))
-    assert right > 2 * wrong, (right, wrong)  # measured 206 right, 67 wrong
-    traces, before, after, refined = recover(rig, keypoints, matches)
+    pairs = []
+
+    def both(a, b):
+        got = _port_matcher(a, b)
+        pairs.append((_sorted_rows(*got), _sorted_rows(*JM.match_keypoints(a, b))))
+        return got
+
+    keypoints, matches, right, wrong = cs.ring_pairs(rig, views, both)
+    for got, want in pairs:
+        np.testing.assert_array_equal(got, want)
+    assert (right, wrong) == (207, 136)  # OpenCV's ORB on this scene
+    traces, before, after, refined = cs.recover(rig, keypoints, matches)
     assert traces > 30, traces
     assert after["median"] < 0.7 * before["median"], (before, after)
-    assert min_forward_dot(rig, refined) > 0.999
+    assert cs._min_forward_dot(rig, refined) > 0.999

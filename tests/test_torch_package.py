@@ -54,7 +54,6 @@ SLICE_MODULES = [
     "surround360_tpu_torch.calib",
     "surround360_tpu_torch.calib.geometric",
     "surround360_tpu_torch.calib.orb",
-    "surround360_tpu_torch.calib.orb_pattern",
     "surround360_tpu_torch.calib.matches",
     "surround360_tpu_torch.calib.vignetting",
     "surround360_tpu_torch.calib.color",
@@ -166,14 +165,14 @@ def test_every_entry_point_leaves_tf32_off():
     """Starting from torch's defaults (cuDNN may run float32 convolutions
     in TF32), resolve_device and the public callers of every convolution
     and float32 product site each leave both TF32 flags off: the resize's
-    two convolution paths, the ORB smoothing, the vignetting blur, the ISP,
-    render_frame and the mesh's step."""
+    two convolution paths, the ORB matcher's Hamming product, the
+    vignetting blur, the ISP, render_frame and the mesh's step."""
     code = """
 import numpy as np, torch
 from torch.backends import cuda, cudnn
 assert cudnn.allow_tf32, "torch's default"
 torch.set_num_threads(1)
-from surround360_tpu_torch.calib.orb import detect_and_compute, to_gray8
+from surround360_tpu_torch.calib.orb import orb_match
 from surround360_tpu_torch.calib.vignetting import acquire_vignetting_samples
 from surround360_tpu_torch.cli.common import resolve_device
 from surround360_tpu_torch.isp.pipeline import IspConfig, isp_process
@@ -191,7 +190,7 @@ calls = {
     "gaussian_blur": lambda: gaussian_blur(img, 2.0),
     "sharpen_iir": lambda: sharpen_iir(img, 1.25),
     "resize_cubic": lambda: resize_cubic(img[..., :1300], (8, 2600)),
-    "orb": lambda: detect_and_compute(to_gray8(rng.random((96, 128)).astype(np.float32), "cpu")),
+    "orb": lambda: orb_match(*rng.random((2, 96, 128)).astype(np.float32), device="cpu"),
     "vignetting": lambda: acquire_vignetting_samples([rng.random((64, 64))], device="cpu"),
     "isp": lambda: isp_process(torch.rand(32, 32), IspConfig()),
     "render_frame": lambda: render_frame(ctx, side, top, bottom),
