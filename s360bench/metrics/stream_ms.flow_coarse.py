@@ -1,0 +1,9 @@
+"""Stream milliseconds a frame of every coarser pyramid level of the
+program's flow: the CUDA events of the ``flow.level`` spans with
+``finest`` False, over every flow call of the traced frames."""
+
+from s360bench.spans import flow_level_ms
+
+
+def read(data):
+    return flow_level_ms(data, False, "stream")

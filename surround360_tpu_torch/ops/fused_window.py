@@ -25,10 +25,12 @@ fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches by (kernel, site), where kernel is one
 of :data:`KERNELS` and site is the caller's label, so a run can show which
-call sites went through which kernel. ``RECORD``, when set to a dict,
-keeps per (kernel, site, offsets) the inputs and output of the call with
-the most samples and the number of calls (launches on the card, twin calls
-on the CPU), for later comparison with the twin.
+call sites went through which kernel; each launch also counts as
+``launches.<kernel>`` in the innermost span of ``utils/tracing.py`` while
+tracing is on. ``RECORD``, when set to a dict, keeps per (kernel, site,
+offsets) the inputs and output of the call with the most samples and the
+number of calls (launches on the card, twin calls on the CPU), for later
+comparison with the twin.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import threading
 import torch
 
 from .. import cuda_build
+from ..utils import tracing
 
 __all__ = [
     "KERNELS",
@@ -238,9 +241,14 @@ def _record(kernel, site, args, kw, out):
             RECORD[key] = RECORD[key][:3] + (n,)
 
 
+# the launches' counter in the innermost tracing span
+_SPAN_KEYS = {k: "launches." + k for k in KERNELS}
+
+
 def _count(kernel, site):
     with _LOCK:
         LAUNCHES[(kernel, site)] += 1
+    tracing.count(_SPAN_KEYS[kernel])
 
 
 def fused_window_sample(

@@ -18,6 +18,11 @@ temporal-regularization state is a dict of tensors with the reference's
 keys; :func:`state_from_numpy` / :func:`state_to_numpy` convert it, so a
 state from either package can drive the next frame of the other.
 
+The frame's stages run in spans of ``utils/tracing.py``: ``frame``
+around :func:`render_frame`, and inside it ``projection``, ``side_flow``,
+``novel_view``, ``poles`` (with a ``poles.strip`` per fisheye) and
+``output``; ``setup.context`` and ``setup.plan`` time the host set-up.
+
 Call :func:`render_frame` with float32 tensors; it turns TF32 off, since
 the reference it is held against computes in float32. With pole removal
 the caller combines the two bottom cameras first (``render.pole``) and
@@ -59,6 +64,7 @@ from ..ops.warp import (
 )
 from ..ops.window_sampler import sample_displaced, sample_displaced_residual
 from ..utils.math_util import disable_tf32, ramp
+from ..utils.tracing import span
 from ..views.novel_view import lazy_warp_columns, prepare_pair_flows, render_chunk_pair
 
 __all__ = [
@@ -149,17 +155,23 @@ class RenderContext:
         key = (name, tuple(src_hw), str(device), cams)
         with _PLANS_LOCK:
             if key not in self.plans:
-                if name == "side":
-                    warps = self.side_warps if cams is None else self.side_warps[slice(*cams)]
-                else:
-                    warps = getattr(self, f"{name}_warp")[None]
-                self.plans[key] = plan_static_remap(warps, *src_hw, "bicubic", device)
+                with span("setup.plan", name=name):
+                    if name == "side":
+                        warps = self.side_warps if cams is None else self.side_warps[slice(*cams)]
+                    else:
+                        warps = getattr(self, f"{name}_warp")[None]
+                    self.plans[key] = plan_static_remap(warps, *src_hw, "bicubic", device)
             return self.plans[key]
 
 
 def build_render_context(rig: Rig, config: RenderConfig) -> RenderContext:
     """Precompute all rig-static warps and geometry
     (TestRenderStereoPanorama.cpp:138-175, :295-348)."""
+    with span("setup.context"):
+        return _build_context(rig, config)
+
+
+def _build_context(rig: Rig, config: RenderConfig) -> RenderContext:
     n = rig.side_camera_count
     if config.eqr_width % n != 0:
         raise ValueError(
@@ -266,19 +278,20 @@ def _project_side_cameras(ctx: RenderContext, side_images, first: int = 0):
     """Feather source rows, then remap each side camera into its spherical
     strip (projectSideToSpherical, TestRenderStereoPanorama.cpp:99-135).
     ``side_images`` are side cameras [first, first + n) of the ring."""
-    feather = ctx.config.side_alpha_feather_size
-    imgs = side_images
-    if feather:
-        H = imgs.shape[-2]
-        y = torch.arange(H, dtype=torch.float32, device=imgs.device)
-        ramp_top = torch.clamp((y + 0.5) / feather, max=1.0)
-        ramp_full = torch.minimum(ramp_top, ramp_top.flip(0))[None, :, None]
-        alpha = imgs[:, 3] * ramp_full
-        imgs = torch.cat([imgs[:, :3], alpha[:, None]], dim=1)
-    n = imgs.shape[0]
-    cams = None if (first, n) == (0, ctx.num_side_cams) else (first, first + n)
-    plan = ctx.static_plan("side", imgs.shape[-2:], imgs.device, cams)
-    return remap_static_planned(imgs, plan, site="side_projection")
+    with span("projection"):
+        feather = ctx.config.side_alpha_feather_size
+        imgs = side_images
+        if feather:
+            H = imgs.shape[-2]
+            y = torch.arange(H, dtype=torch.float32, device=imgs.device)
+            ramp_top = torch.clamp((y + 0.5) / feather, max=1.0)
+            ramp_full = torch.minimum(ramp_top, ramp_top.flip(0))[None, :, None]
+            alpha = imgs[:, 3] * ramp_full
+            imgs = torch.cat([imgs[:, :3], alpha[:, None]], dim=1)
+        n = imgs.shape[0]
+        cams = None if (first, n) == (0, ctx.num_side_cams) else (first, first + n)
+        plan = ctx.static_plan("side", imgs.shape[-2:], imgs.device, cams)
+        return remap_static_planned(imgs, plan, site="side_projection")
 
 
 def _side_pair_flows(ctx: RenderContext, overlap_l, overlap_r, state, use_temporal):
@@ -286,44 +299,45 @@ def _side_pair_flows(ctx: RenderContext, overlap_l, overlap_r, state, use_tempor
     side_flow_scale downscaling. The state is stored at the solver's
     working resolution, in the units of that resolution (as in the
     reference)."""
-    cfg = ctx.config
-    flow_params = make_flow_params(cfg.side_flow_alg)
-    scale = cfg.side_flow_scale
-    sh, ov = overlap_l.shape[-2:]
-    if scale != 1.0:
-        fh, fw = int(sh * scale), int(ov * scale)
-        in_l = resize_area(overlap_l, (fh, fw))
-        in_r = resize_area(overlap_r, (fh, fw))
-    else:
-        fh, fw = sh, ov
-        in_l, in_r = overlap_l, overlap_r
+    with span("side_flow"):
+        cfg = ctx.config
+        flow_params = make_flow_params(cfg.side_flow_alg)
+        scale = cfg.side_flow_scale
+        sh, ov = overlap_l.shape[-2:]
+        if scale != 1.0:
+            fh, fw = int(sh * scale), int(ov * scale)
+            in_l = resize_area(overlap_l, (fh, fw))
+            in_r = resize_area(overlap_r, (fh, fw))
+        else:
+            fh, fw = sh, ov
+            in_l, in_r = overlap_l, overlap_r
 
-    flow_ltr, flow_rtl = prepare_pair_flows(
-        in_l, in_r, flow_params,
-        prev_flow_l_to_r=state.get("pair_flow_ltr"),
-        prev_flow_r_to_l=state.get("pair_flow_rtl"),
-        prev_overlap_l=state.get("prev_overlap_l"),
-        prev_overlap_r=state.get("prev_overlap_r"),
-        use_temporal=use_temporal, site="side_flow",
-    )
+        flow_ltr, flow_rtl = prepare_pair_flows(
+            in_l, in_r, flow_params,
+            prev_flow_l_to_r=state.get("pair_flow_ltr"),
+            prev_flow_r_to_l=state.get("pair_flow_rtl"),
+            prev_overlap_l=state.get("prev_overlap_l"),
+            prev_overlap_r=state.get("prev_overlap_r"),
+            use_temporal=use_temporal, site="side_flow",
+        )
 
-    dsf = flow_params.downscale_factor
-    dh, dw = int(fh * dsf), int(fw * dsf)
-    unit = dh / fh
-    new_state = {
-        "pair_flow_ltr": resize_cubic(flow_ltr, (dh, dw)) * unit,
-        "pair_flow_rtl": resize_cubic(flow_rtl, (dh, dw)) * unit,
-        "prev_overlap_l": resize_cubic(in_l, (dh, dw)),
-        "prev_overlap_r": resize_cubic(in_r, (dh, dw)),
-    }
+        dsf = flow_params.downscale_factor
+        dh, dw = int(fh * dsf), int(fw * dsf)
+        unit = dh / fh
+        new_state = {
+            "pair_flow_ltr": resize_cubic(flow_ltr, (dh, dw)) * unit,
+            "pair_flow_rtl": resize_cubic(flow_rtl, (dh, dw)) * unit,
+            "prev_overlap_l": resize_cubic(in_l, (dh, dw)),
+            "prev_overlap_r": resize_cubic(in_r, (dh, dw)),
+        }
 
-    if scale != 1.0:
-        axis_scale = torch.tensor(
-            [ov / fw, sh / fh], dtype=torch.float32, device=flow_ltr.device
-        ).reshape(1, 2, 1, 1)
-        flow_ltr = resize_bilinear(flow_ltr, (sh, ov)) * axis_scale
-        flow_rtl = resize_bilinear(flow_rtl, (sh, ov)) * axis_scale
-    return flow_ltr, flow_rtl, new_state
+        if scale != 1.0:
+            axis_scale = torch.tensor(
+                [ov / fw, sh / fh], dtype=torch.float32, device=flow_ltr.device
+            ).reshape(1, 2, 1, 1)
+            flow_ltr = resize_bilinear(flow_ltr, (sh, ov)) * axis_scale
+            flow_rtl = resize_bilinear(flow_rtl, (sh, ov)) * axis_scale
+        return flow_ltr, flow_rtl, new_state
 
 
 def _render_ring_range(ctx: RenderContext, projections, next_strip, state, use_temporal):
@@ -340,21 +354,23 @@ def _render_ring_range(ctx: RenderContext, projections, next_strip, state, use_t
     flow_ltr, flow_rtl, ring_state = _side_pair_flows(
         ctx, overlap_l, overlap_r, state, use_temporal
     )
-    chunks_l, chunks_r = render_chunk_pair(
-        overlap_l, overlap_r, flow_ltr, flow_rtl,
-        ctx.warp_cols_l, ctx.t_cols, ctx.warp_cols_r,
-    )
+    with span("novel_view"):
+        chunks_l, chunks_r = render_chunk_pair(
+            overlap_l, overlap_r, flow_ltr, flow_rtl,
+            ctx.warp_cols_l, ctx.t_cols, ctx.warp_cols_r,
+        )
     return chunks_l, chunks_r, ring_state
 
 
 def _stitch_ring(ctx: RenderContext, chunks_l, chunks_r):
     """The ring's chunks side by side, shifted to the zero-parallax
     distance: (pano_l, pano_r)."""
-    pano_l = stack_horizontal(list(chunks_l.unbind(0)))
-    pano_r = stack_horizontal(list(chunks_r.unbind(0)))
-    pano_l = offset_horizontal_wrap(pano_l, ctx.zero_parallax_shift_px)
-    pano_r = offset_horizontal_wrap(pano_r, -ctx.zero_parallax_shift_px)
-    return pano_l, pano_r
+    with span("novel_view"):
+        pano_l = stack_horizontal(list(chunks_l.unbind(0)))
+        pano_r = stack_horizontal(list(chunks_r.unbind(0)))
+        pano_l = offset_horizontal_wrap(pano_l, ctx.zero_parallax_shift_px)
+        pano_r = offset_horizontal_wrap(pano_r, -ctx.zero_parallax_shift_px)
+        return pano_l, pano_r
 
 
 def _render_ring(ctx: RenderContext, projections, state, use_temporal):
@@ -376,16 +392,17 @@ def _pad_to_height(img, target_h: int):
 def _prepare_fisheye_strip(ctx, name, strip_h, image, feather_size, alpha_min=False):
     """Remap a fisheye camera into its spherical strip and feather the
     bottom rows (TestRenderStereoPanorama.cpp:606-685)."""
-    plan = ctx.static_plan(name, image.shape[-2:], image.device)
-    spherical = remap_static_planned(image[None], plan, site="fisheye_strip")[0]
-    y = torch.arange(strip_h, dtype=torch.float32, device=image.device)
-    start = strip_h - 1 - feather_size
-    fade = torch.clamp(1.0 - (y - start) / feather_size, 0.0, 1.0)[:, None]
-    if alpha_min:
-        alpha = torch.minimum(spherical[3], fade)
-    else:
-        alpha = fade.expand(spherical[3].shape)
-    return torch.cat([spherical[:3], alpha[None]], dim=0)
+    with span("poles.strip", pole=name):
+        plan = ctx.static_plan(name, image.shape[-2:], image.device)
+        spherical = remap_static_planned(image[None], plan, site="fisheye_strip")[0]
+        y = torch.arange(strip_h, dtype=torch.float32, device=image.device)
+        start = strip_h - 1 - feather_size
+        fade = torch.clamp(1.0 - (y - start) / feather_size, 0.0, 1.0)[:, None]
+        if alpha_min:
+            alpha = torch.minimum(spherical[3], fade)
+        else:
+            alpha = fade.expand(spherical[3].shape)
+        return torch.cat([spherical[:3], alpha[None]], dim=0)
 
 
 def _pole_to_side_flow(ctx: RenderContext, side_pano_2, fisheye, state_key, state, use_temporal):
@@ -614,9 +631,10 @@ def _cubemap(ctx, pano_rgb):
         key = (name, (eqr_h, eqr_w, fw_, fh), str(pano_rgb.device))
         with _PLANS_LOCK:
             if key not in ctx.plans:
-                ctx.plans[key] = plan_static_remap(
-                    warp[None], *padded.shape[-2:], "bicubic", pano_rgb.device
-                )
+                with span("setup.plan", name=name):
+                    ctx.plans[key] = plan_static_remap(
+                        warp[None], *padded.shape[-2:], "bicubic", pano_rgb.device
+                    )
             plan = ctx.plans[key]
         stacks.append(remap_static_planned(padded[None], plan, site=name)[0])
     faces = {
@@ -662,16 +680,17 @@ def render_frame(
     --save_debug_images intermediates (TestRenderStereoPanorama.cpp:177-185,
     :792-801), and takes the poles one at a time so that each pole's warped
     layer exists."""
-    disable_tf32()
-    state = state or {}
+    with span("frame", temporal=use_temporal):
+        disable_tf32()
+        state = state or {}
 
-    projections = _project_side_cameras(ctx, side_images)
-    pano_l, pano_r, ring_state = _render_ring(ctx, projections, state, use_temporal)
-    debug = (dict(projections=projections, spherical_l=pano_l, spherical_r=pano_r)
-             if save_debug else None)
-    del projections
-    return _render_after_ring(ctx, pano_l, pano_r, ring_state, top_image, bottom_image,
-                              state, use_temporal, debug)
+        projections = _project_side_cameras(ctx, side_images)
+        pano_l, pano_r, ring_state = _render_ring(ctx, projections, state, use_temporal)
+        debug = (dict(projections=projections, spherical_l=pano_l, spherical_r=pano_r)
+                 if save_debug else None)
+        del projections
+        return _render_after_ring(ctx, pano_l, pano_r, ring_state, top_image, bottom_image,
+                                  state, use_temporal, debug)
 
 
 def _render_after_ring(ctx: RenderContext, pano_l, pano_r, ring_state, top_image,
@@ -682,48 +701,50 @@ def _render_after_ring(ctx: RenderContext, pano_l, pano_r, ring_state, top_image
     cfg = ctx.config
     save_debug = debug is not None
     new_state: dict[str, Any] = dict(ring_state)
-    pano2 = torch.stack([
-        _pad_to_height(pano_l, cfg.eqr_height), _pad_to_height(pano_r, cfg.eqr_height)
-    ])
+    with span("novel_view"):
+        pano2 = torch.stack([
+            _pad_to_height(pano_l, cfg.eqr_height), _pad_to_height(pano_r, cfg.eqr_height)
+        ])
     del pano_l, pano_r
 
-    top_strip = bottom_strip = None
-    if cfg.enable_top:
-        top_strip = _prepare_fisheye_strip(
-            ctx, "top", ctx.top_h, top_image, cfg.std_alpha_feather_size
-        )
-        if save_debug:
-            debug["top_strip"] = top_strip
-    if cfg.enable_bottom:
-        bottom_strip = _prepare_fisheye_strip(
-            ctx, "bottom", ctx.bottom_h, bottom_image,
-            cfg.std_alpha_feather_size, alpha_min=True,
-        )
-        if save_debug:
-            debug["bottom_strip"] = bottom_strip
-
-    if _merge_poles(ctx) and not save_debug:
-        pano2, st = _poles_to_side_flow(
-            ctx, pano2, top_strip, bottom_strip, state, use_temporal
-        )
-        new_state.update(st)
-    else:
+    with span("poles"):
+        top_strip = bottom_strip = None
         if cfg.enable_top:
-            warped, st = _pole_to_side_flow(ctx, pano2, top_strip, "top", state, use_temporal)
-            new_state.update(st)
+            top_strip = _prepare_fisheye_strip(
+                ctx, "top", ctx.top_h, top_image, cfg.std_alpha_feather_size
+            )
             if save_debug:
-                debug["top_warped"] = warped
-            pano2 = flatten_layers_deghost_prefer_base(pano2, warped)
+                debug["top_strip"] = top_strip
         if cfg.enable_bottom:
-            flipped = torch.flip(pano2, dims=(-2, -1))
-            warped, st = _pole_to_side_flow(
-                ctx, flipped, bottom_strip, "bottom", state, use_temporal
+            bottom_strip = _prepare_fisheye_strip(
+                ctx, "bottom", ctx.bottom_h, bottom_image,
+                cfg.std_alpha_feather_size, alpha_min=True,
+            )
+            if save_debug:
+                debug["bottom_strip"] = bottom_strip
+
+        if _merge_poles(ctx) and not save_debug:
+            pano2, st = _poles_to_side_flow(
+                ctx, pano2, top_strip, bottom_strip, state, use_temporal
             )
             new_state.update(st)
-            if save_debug:
-                debug["bottom_warped"] = warped
-            flipped = flatten_layers_deghost_prefer_base(flipped, warped)
-            pano2 = torch.flip(flipped, dims=(-2, -1))
+        else:
+            if cfg.enable_top:
+                warped, st = _pole_to_side_flow(ctx, pano2, top_strip, "top", state, use_temporal)
+                new_state.update(st)
+                if save_debug:
+                    debug["top_warped"] = warped
+                pano2 = flatten_layers_deghost_prefer_base(pano2, warped)
+            if cfg.enable_bottom:
+                flipped = torch.flip(pano2, dims=(-2, -1))
+                warped, st = _pole_to_side_flow(
+                    ctx, flipped, bottom_strip, "bottom", state, use_temporal
+                )
+                new_state.update(st)
+                if save_debug:
+                    debug["bottom_warped"] = warped
+                flipped = flatten_layers_deghost_prefer_base(flipped, warped)
+                pano2 = torch.flip(flipped, dims=(-2, -1))
 
     outputs = _finalize_outputs(ctx, pano2)
     if save_debug:
@@ -764,23 +785,24 @@ def _final_resize_shape(cfg) -> "tuple[int, int] | None":
 def _finalize_outputs(ctx: RenderContext, pano2):
     """Sharpen, optional cubemap, optional final resize, stereo stack
     (TestRenderStereoPanorama.cpp:901-961)."""
-    cfg = ctx.config
-    rgb2 = pano2[:, :3]
-    if cfg.sharpening > 0.0:
-        rgb2 = sharpen_iir(
-            rgb2, amount=1.0 + cfg.sharpening, iir_amount=0.25,
-            h_boundary="wrap", v_boundary="reflect",
-        )
-    outputs = {}
-    if cfg.cubemap_width > 0 and cfg.cubemap_height > 0:
-        outputs["cubemap"] = torch.cat(
-            [_cubemap(ctx, rgb2[0]), _cubemap(ctx, rgb2[1])], dim=-2
-        )
-    final = _final_resize_shape(cfg)
-    if final is not None:
-        rgb2 = resize_cubic(rgb2, final)
-    outputs["equirect"] = torch.cat([rgb2[0], rgb2[1]], dim=-2)
-    return outputs
+    with span("output"):
+        cfg = ctx.config
+        rgb2 = pano2[:, :3]
+        if cfg.sharpening > 0.0:
+            rgb2 = sharpen_iir(
+                rgb2, amount=1.0 + cfg.sharpening, iir_amount=0.25,
+                h_boundary="wrap", v_boundary="reflect",
+            )
+        outputs = {}
+        if cfg.cubemap_width > 0 and cfg.cubemap_height > 0:
+            outputs["cubemap"] = torch.cat(
+                [_cubemap(ctx, rgb2[0]), _cubemap(ctx, rgb2[1])], dim=-2
+            )
+        final = _final_resize_shape(cfg)
+        if final is not None:
+            rgb2 = resize_cubic(rgb2, final)
+        outputs["equirect"] = torch.cat([rgb2[0], rgb2[1]], dim=-2)
+        return outputs
 
 
 def state_from_numpy(state: dict, device) -> dict:

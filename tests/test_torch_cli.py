@@ -413,54 +413,75 @@ def test_debug_image_tree_equals_jax(tmp_path, pole_footage):
 
 
 def test_profile_stages_prints_every_stage(tmp_path, pole_footage, caplog):
-    """--profile_stages logs the stage table before rendering: every stage
-    of render.profiling with its milliseconds and share of the frame."""
+    """--profile_stages renders with tracing on and logs each rendered
+    frame's stage table, read from that frame's spans: the frame, every
+    stage of render.profiling, then the flow by site and pyramid level,
+    each with its host and stream milliseconds and share of the frame."""
     root, rig_path, _ = pole_footage
     with caplog.at_level(logging.INFO, logger="surround360_tpu_torch"):
-        TRV.render_video(rig_path, str(root / "imgs"), str(tmp_path / "out"), 0, 0,
+        TRV.render_video(rig_path, str(root / "imgs"), str(tmp_path / "out"), 0, 1,
                          RenderConfig(**dict(KW, sharpening=0.25)), profile_stages=True,
                          device="cpu")
-    table = next(r.getMessage() for r in caplog.records
-                 if r.getMessage().startswith("stage breakdown"))
-    lines = table.splitlines()[1:]
-    assert [ln.split()[0] for ln in lines] == [
-        "projection", "side_flow", "novel_view", "ring_total", "fisheye_strip",
-        "pole_flow_solve", "pole_flow_composite_one", "pole_warp_blend",
-        "pole_merged", "output", "full_frame"]
-    assert all(" ms" in ln and "% of frame" in ln for ln in lines)
-    assert os.path.exists(tmp_path / "out" / "eqr_frames" / "eqr_000000.png")
+    tables = [r.getMessage() for r in caplog.records
+              if r.getMessage().startswith("stage breakdown")]
+    assert [t.split()[4] for t in tables] == ["000000", "000001"]
+    for table in tables:
+        lines = table.splitlines()[1:]
+        names = [ln.split()[0] for ln in lines]
+        assert names[:6] == ["frame", *TPROF.STAGES]
+        flows = names[6:]
+        assert flows and all(n.startswith(("flow.side_flow.L", "flow.pole_flow.L"))
+                             for n in flows)
+        assert {"flow.side_flow.L0", "flow.pole_flow.L0"} <= set(flows)
+        assert all(" ms host" in ln and "n/a ms stream" in ln and "% of frame" in ln
+                   for ln in lines)
+        assert lines[0].split()[1] != "0.00"
+    assert os.path.exists(tmp_path / "out" / "eqr_frames" / "eqr_000001.png")
 
 
 def test_stage_breakdown_selects_stages_and_counts_launches(monkeypatch):
-    """A selected stage pulls in the stages it consumes; the launches come
-    from the wrappers' counters (here: a stub that counts, since the CPU
-    twins launch nothing)."""
+    """The table reads a traced frame's spans: each stage once per frame
+    (``novel_view``'s spans summed), shares of the frame's host time, the
+    flow by level with one finest level per call, and the launches that
+    the wrappers count into the innermost span (here: a stub that counts
+    through the wrappers' counter, since the CPU twins launch nothing)."""
     import collections
 
     import torch
 
     from surround360_tpu_torch.geometry.rig import make_ring_rig as port_rig
     from surround360_tpu_torch.ops import fused_window as fw
-    from surround360_tpu_torch.render.panorama import build_render_context
+    from surround360_tpu_torch.render.panorama import build_render_context, render_frame
+    from surround360_tpu_torch.utils import tracing
 
     monkeypatch.setattr(fw, "LAUNCHES", collections.Counter())
     rig = port_rig().rescaled(0.03125)
-    ctx = build_render_context(rig, RenderConfig(**dict(KW, side_flow_alg="pixflow_tpu")))
+    ctx = build_render_context(rig, RenderConfig(**dict(KW, side_flow_alg="pixflow_tpu",
+                                                        enable_top=False,
+                                                        enable_bottom=False)))
     side = torch.rand((14, 4, 64, 64), generator=torch.Generator().manual_seed(0))
     real = fw.fused_window_sample
 
     def counting(*a, site="", **k):
-        fw.LAUNCHES[(fw.K1, site)] += 1
+        fw._count(fw.K1, site)
         return real(*a, site=site, **k)
 
     monkeypatch.setattr("surround360_tpu_torch.ops.remap.fused_window_sample", counting)
-    times, launches = TPROF.stage_breakdown(ctx, side, reps=1, stages={"side_flow"})
-    assert list(times) == ["projection", "side_flow"]
-    assert launches["projection"][fw.K1] == 1 and launches["side_flow"][fw.K1] == 0
-    assert "fused_window_sample x1" in TPROF.format_breakdown(times, launches)
-    assert "% of frame" not in TPROF.format_breakdown(times, launches)
-    with pytest.raises(ValueError, match="unknown stages"):
-        TPROF.stage_breakdown(ctx, side, stages={"warp_drive"})
+    with tracing.recording():
+        render_frame(ctx, side)
+        rows = TPROF.stage_breakdown(tracing.session())
+    assert list(rows)[:6] == ["frame", *TPROF.STAGES]
+    assert rows["frame"]["share"] == 1.0
+    assert sum(rows[s]["share"] for s in TPROF.STAGES) <= 1.0
+    assert rows["projection"]["launches"] == {fw.K1: 1}
+    assert rows["frame"]["launches"] == {fw.K1: 1} and not rows["side_flow"]["launches"]
+    assert fw.LAUNCHES[(fw.K1, "side_projection")] == 1
+    levels = [r for r in rows if r.startswith("flow.side_flow.L")]
+    assert levels[-1] == "flow.side_flow.L0"
+    table = TPROF.format_breakdown(rows)
+    assert "fused_window_sample x1" in table and "% of frame" in table
+    with pytest.raises(ValueError, match="no frame span"):
+        TPROF.stage_breakdown(tracing.session(), frame=-1)
 
 
 # --- unpack, raw2rgb, run_all ---------------------------------------------

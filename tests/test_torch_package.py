@@ -15,6 +15,7 @@ SLICE_MODULES = [
     "surround360_tpu_torch",
     "surround360_tpu_torch.cuda_build",
     "surround360_tpu_torch.utils.math_util",
+    "surround360_tpu_torch.utils.tracing",
     "surround360_tpu_torch.geometry.camera",
     "surround360_tpu_torch.geometry.rig",
     "surround360_tpu_torch.ops.warp",
