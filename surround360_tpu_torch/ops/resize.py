@@ -10,6 +10,8 @@ depthwise 1-D convolutions) so no O(n^2) matrix is formed there.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -28,6 +30,9 @@ __all__ = [
     "resize_matrix_cubic",
     "resize_matrix_area",
     "conv_separable_1d",
+    "on_device",
+    "device_constant",
+    "pinning",
 ]
 
 
@@ -120,15 +125,57 @@ CONV_MIN_AXIS = 2500
 
 
 @lru_cache(maxsize=128)
-def on_device(make, device: torch.device, *args) -> torch.Tensor:
-    """Device copy of a cached host matrix ``make(*args)``."""
+def _cached_on_device(make, device: torch.device, *args) -> torch.Tensor:
     return torch.from_numpy(make(*args)).to(device)
+
+
+# device tensors that a CUDA graph reads: (make, device, args) -> tensor
+_PINNED: dict = {}
+_PINNING = threading.local()  # .on while pinning() is open on this thread
+
+
+def on_device(make, device: torch.device, *args) -> torch.Tensor:
+    """Device copy of a cached host matrix ``make(*args)``: the pinned copy
+    where there is one, else the cache's (which keeps the 128 last used);
+    pinned for the process when asked inside :func:`pinning`."""
+    key = (make, device, args)
+    t = _PINNED.get(key)
+    if t is None:
+        t = _cached_on_device(make, device, *args)
+        if getattr(_PINNING, "on", False):
+            _PINNED[key] = t
+    return t
+
+
+@contextmanager
+def pinning():
+    """While open, every tensor :func:`on_device` hands out on this thread
+    is pinned: kept for the process and handed out again for the same
+    arguments. A CUDA graph reads such tensors by address, so the cache
+    must neither free them nor upload a second copy."""
+    prev = getattr(_PINNING, "on", False)
+    _PINNING.on = True
+    try:
+        yield
+    finally:
+        _PINNING.on = prev
+
+
+def _float32(values) -> np.ndarray:
+    return np.asarray(values, np.float32)
+
+
+def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """float32 ``values`` (a tuple of numbers or of tuples) on ``device``,
+    uploaded once through :func:`on_device`: work captured into a CUDA
+    graph may not copy from pageable host memory."""
+    return on_device(_float32, device, values)
 
 
 def conv_separable_1d(img: torch.Tensor, kernel_np, boundary: str, axis: int):
     """Depthwise 1-D cross-correlation of (..., H, W) along ``axis`` with an
     odd host kernel; boundary "reflect" (BORDER_REFLECT_101) or "wrap"."""
-    k = torch.as_tensor(np.asarray(kernel_np, np.float32), device=img.device)
+    k = device_constant(tuple(np.asarray(kernel_np, np.float32).tolist()), img.device)
     r = (k.numel() - 1) // 2
     moved = img.float().movedim(axis, -1)
     lead = moved.shape[:-1]
@@ -206,7 +253,7 @@ def _double_axis_cubic(img: torch.Tensor, axis: int):
     disable_tf32()
 
     def phase(kernel, off):
-        k = torch.as_tensor(kernel, device=img.device).view(1, 1, -1)
+        k = device_constant(tuple(kernel.tolist()), img.device).view(1, 1, -1)
         return F.conv1d(padded[..., 1 + off : 1 + off + n + 3], k)
 
     even = phase(taps(0.75), -1)  # i0 = j - 1, t = 0.75

@@ -37,6 +37,7 @@ from .fused_window import (
     fused_window_sample_folded,
     window_gather,
 )
+from .resize import device_constant
 
 __all__ = [
     "WindowPlan",
@@ -386,7 +387,7 @@ def make_window_sampler(
             )
 
         if offsets is not None:
-            off = torch.tensor(offsets, dtype=torch.float32, device=img.device)
+            off = device_constant(tuple(map(tuple, offsets)), img.device)
             off = off[:, :, None, None, None]  # (O, 2, 1, 1, 1): oy, ox
 
         def fn_plain(x, y):

@@ -182,16 +182,20 @@ def test_launches_count_in_the_innermost_span(scene, monkeypatch):
             render_frame(ctx, side, top, bottom)
     key = "launches." + fw.K1
     spans = _recorded()
-    counted = {s.name: s.counts for s in spans if s.counts}
+    counted = {s.name: s.counts for s in spans if s.counts and s.name != "flow.level"}
     assert counted == {"projection": {key: 1}, "poles.strip": {key: 1}}
     assert [s.counts for s in spans if s.name == "poles.strip"] == [{key: 1}] * 2
+    # each flow level counts how it ran: eagerly, on the CPU
+    levels = [s for s in spans if s.name == "flow.level"]
+    assert levels and all(s.counts == {"flow.graph.eager": 1} for s in levels)
+    both = {key: 3, "flow.graph.eager": len(levels)}
     t = tracing.totals()
-    assert t["outer"]["counts"] == t["frame"]["counts"] == {key: 3}
+    assert t["outer"]["counts"] == t["frame"]["counts"] == both
     assert fw.LAUNCHES[(fw.K1, "side_projection")] == 1
     assert fw.LAUNCHES[(fw.K1, "fisheye_strip")] == 2
     fw._count(fw.K1, "off")  # tracing off: LAUNCHES only
     assert fw.LAUNCHES[(fw.K1, "off")] == 1
-    assert tracing.totals()["frame"]["counts"] == {key: 3}
+    assert tracing.totals()["frame"]["counts"] == both
 
 
 def test_events_are_resolved_only_when_the_record_is_read(monkeypatch):
