@@ -30,7 +30,7 @@ from __future__ import annotations
 import math
 import threading
 from contextlib import contextmanager
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import numpy as np
@@ -435,7 +435,8 @@ def _search_distance(params: FlowParams) -> int:
     return (PYR_MIN_IMAGE_SIZE * params.search_max_percentage + 50) // 100
 
 
-def _search_offsets(params: FlowParams):
+@lru_cache(maxsize=64)
+def _search_offsets(params: FlowParams) -> tuple:
     """Static union of the 4 hint boxes (computeSearchBox,
     PixFlow.h:279-296) as sorted (dy, dx, hints) triples."""
     dist = _search_distance(params)
@@ -451,13 +452,27 @@ def _search_offsets(params: FlowParams):
         for dy in dys:
             for dx in dxs:
                 union.setdefault((dy, dx), set()).add(hint)
-    return [(dy, dx, tuple(sorted(h))) for (dy, dx), h in sorted(union.items())]
+    return tuple((dy, dx, tuple(sorted(h))) for (dy, dx), h in sorted(union.items()))
+
+
+@lru_cache(maxsize=64)
+def _search_boxes(params: FlowParams) -> tuple:
+    """The offsets the search tries against its start, (0, 0): (dy, dx)
+    pairs, and a table with one row each of the hints whose box holds
+    it, padded with 0.5, which no hint equals."""
+    tried = [(dy, dx, h) for dy, dx, h in _search_offsets(params) if (dy, dx) != (0, 0)]
+    width = max(len(h) for *_, h in tried)
+    table = tuple(h + (0.5,) * (width - len(h)) for *_, h in tried)
+    return tuple((dy, dx) for dy, dx, _ in tried), table
 
 
 def _adjust_initial_flow(I0, I1, alpha0, alpha1, flow, hint, params: FlowParams):
     """Brute-force 5x5-SAD search over the hint box at the coarsest level
     (adjustInitialFlow, PixFlow.h:298-342), per batch element's hint
-    ``hint`` (B,)."""
+    ``hint`` (B,). Every offset of the boxes' union is evaluated; a batch
+    element takes an offset only where its hint's box holds it. The hint
+    boxes are one device constant, tested against ``hint`` on the device:
+    no upload and no synchronise after the first call."""
     B, H, W = I0.shape
     # poor man's color correction (PixFlow.h:261-277)
     a = alpha0 * alpha1
@@ -473,14 +488,14 @@ def _adjust_initial_flow(I0, I1, alpha0, alpha1, flow, hint, params: FlowParams)
         err = sad / torch.clamp(asum, min=1e-12)
         return err * (1.0 + float(np.hypot(dx, dy)) / max(dist, 1))
 
+    tried, table = _search_boxes(params)
+    boxes = device_constant(table, I0.device)
+    hint_ok = (hint[None, :, None] == boxes[:, None, :]).any(-1)  # (offsets, B)
     best_err = 0.8 * patch_error(0, 0)
     best_dy = torch.zeros((B, H, W), dtype=torch.float32, device=I0.device)
     best_dx = torch.zeros_like(best_dy)
-    for dy, dx, hints in _search_offsets(params):
-        if (dy, dx) == (0, 0):
-            continue
-        hint_ok = torch.isin(hint, torch.tensor(hints, device=hint.device))
-        err = torch.where(hint_ok[:, None, None], patch_error(dy, dx), torch.inf)
+    for i, (dy, dx) in enumerate(tried):
+        err = torch.where(hint_ok[i][:, None, None], patch_error(dy, dx), torch.inf)
         better = err < best_err
         best_err = torch.where(better, err, best_err)
         best_dy = torch.where(better, float(dy), best_dy)
@@ -513,21 +528,31 @@ def _level_inputs(src, level: int, lh: int, lw: int):
     return [resize_bilinear(t, (lh, lw)) if level else t for t in src[:4]]
 
 
+def _search_step(src, flow, level: int, sizes, params: FlowParams, hint):
+    """The hinted search of :func:`compute_flow` at the coarsest level
+    ``level``: src as :func:`_level_step`'s, ``flow`` the flow where the
+    search finds nothing (zero where None), ``hint`` (B,). Returns the
+    level's starting flow."""
+    lh, lw = sizes[level]
+    inputs = _level_inputs(src, level, lh, lw)
+    if flow is None:
+        flow = torch.zeros((inputs[0].shape[0], 2, lh, lw), dtype=torch.float32,
+                           device=inputs[0].device)
+    return _adjust_initial_flow(*inputs, flow, hint, params)
+
+
 def _level_step(src, flow, level: int, sizes, params: FlowParams,
-                use_temporal: bool, site: str, hint=None):
+                use_temporal: bool, site: str):
     """One pyramid level of :func:`compute_flow`: src = (I0, I1, alpha0,
     alpha1[, prev_flow_d, motion]) at the working resolution, ``flow`` the
-    incoming flow at this level's size (None at the coarsest level, which
-    starts from zero, or from the hinted search when ``hint`` is given).
-    Returns the flow upsampled to the next finer level (the finest level's
-    own flow at level 0)."""
+    incoming flow at this level's size (None at the coarsest level without
+    a search, which starts from zero). Returns the flow upsampled to the
+    next finer level (the finest level's own flow at level 0)."""
     lh, lw = sizes[level]
     I0l, I1l, a0l, a1l = _level_inputs(src, level, lh, lw)
     if flow is None:
         B = I0l.shape[0]
         flow = torch.zeros((B, 2, lh, lw), dtype=torch.float32, device=I0l.device)
-        if hint is not None:
-            flow = _adjust_initial_flow(I0l, I1l, a0l, a1l, flow, hint, params)
     flow = _propagation_and_search(
         I0l, I1l, a0l, a1l, flow, params, is_finest=(level == 0), site=site
     )
@@ -546,7 +571,8 @@ def _level_step(src, flow, level: int, sizes, params: FlowParams,
 # small tensor operations on shapes fixed by the rig and preset, and no
 # host decision inside it depends on data, so each level that launches no
 # hand-written kernel is captured once per key and replayed: the same
-# kernels in the same order, a fraction of the host's launch time.
+# kernels in the same order, a fraction of the host's launch time. The
+# hinted search in front of the coarsest level is a graph of its own.
 
 
 def _graphable(device: torch.device) -> bool:
@@ -572,6 +598,8 @@ def _graph_key(device: torch.device, site: str, params: FlowParams,
 
 
 class _LevelGraph(NamedTuple):
+    """A captured level or search."""
+
     graph: object  # torch.cuda.CUDAGraph (anything with replay())
     flow_in: torch.Tensor | None  # the incoming flow the graph reads
     copy_in: bool  # whether each call copies its incoming flow to flow_in
@@ -586,10 +614,11 @@ class _DeviceGraphs:
     order.
 
     A call's buffers (:meth:`layout`) are its inputs at the working
-    resolution and one flow buffer of the finest level's size, which every
-    level reads its incoming flow from (a prefix, viewed at the level's
-    size) and writes its result to, as its last operation, after every
-    read of its input. Every call loads its inputs, so the calls of all
+    resolution, its hints, and one flow buffer of the finest level's size,
+    which every level reads its incoming flow from (a prefix, viewed at
+    the level's size) and writes its result to, as its last operation,
+    after every read of its input; the search writes the coarsest level's
+    incoming flow there. Every call loads its inputs, so the calls of all
     keys share the buffers' memory: views of one arena, laid out for the
     temporal prior's inputs whether a call has them or not, so that a
     video's first frame and the later ones fit the same arena."""
@@ -608,14 +637,15 @@ class _DeviceGraphs:
     def layout(self, B: int, h: int, w: int, temporal: bool):
         """Views for a call of batch ``B`` at working resolution (h, w): its
         inputs (I0, I1, alpha0, alpha1, and with ``temporal`` prev_flow_d
-        and motion), then the flow buffer (B, 2, h, w); each at a 512-byte
-        boundary, as the allocator places a tensor, in the first arena
-        large enough or in a new one. The same views at every call, since
-        the graphs read them by address."""
+        and motion), the flow buffer (B, 2, h, w) and the hints (B,)
+        int32; each at a 512-byte boundary, as the allocator places a
+        tensor, in the first arena large enough or in a new one. The same
+        views at every call, since the graphs read them by address."""
         views = self.layouts.get((B, h, w))
         if views is None:
             plane, field = (B, h, w), (B, 2, h, w)
-            shapes = (plane,) * 4 + (field, field, plane)  # ..., flow, prev, motion
+            # ..., flow, prev, motion, hints
+            shapes = (plane,) * 4 + (field, field, plane, (B,))
             starts, end = [], 0
             for shape in shapes:
                 starts.append(end)
@@ -624,10 +654,11 @@ class _DeviceGraphs:
             if arena is None:
                 arena = torch.empty(end, dtype=torch.float32, device=self.device)
                 self.arenas.append(arena)
-            views = self.layouts[(B, h, w)] = [
-                arena[o:o + math.prod(sh)].view(sh) for o, sh in zip(starts, shapes)]
-        inputs = views[:4] + (views[5:] if temporal else [])
-        return tuple(inputs), views[4]
+            views = [arena[o:o + math.prod(sh)].view(sh) for o, sh in zip(starts, shapes)]
+            views[-1] = views[-1].view(torch.int32)
+            self.layouts[(B, h, w)] = views
+        inputs = views[:4] + (views[5:7] if temporal else [])
+        return tuple(inputs), views[4], views[7]
 
     @contextmanager
     def use(self):
@@ -692,33 +723,30 @@ def _flow_view(flow_buf: torch.Tensor, size) -> torch.Tensor:
     return flow_buf.view(-1)[: B * 2 * size[0] * size[1]].view(B, 2, *size)
 
 
-def _run_graphed(dg: _DeviceGraphs, key: tuple, static, flow_buf, flow,
-                 prev: _LevelGraph | None, level: int, sizes, params: FlowParams,
-                 use_temporal: bool, site: str) -> _LevelGraph:
-    """Replay level ``key``'s graph on ``static`` (the loaded inputs) and
-    ``flow``, capturing it first where the key is new. Returns the level's
-    graph, whose ``out`` (a view of ``flow_buf``) holds the level's
-    result."""
+def _run_graphed(dg: _DeviceGraphs, key: tuple, body, flow_buf, flow, out_size,
+                 prev: _LevelGraph | None = None) -> _LevelGraph:
+    """Replay graph ``key`` of ``body(flow_in)``, capturing it first where
+    the key is new: a level's body reads its incoming flow ``flow`` (None
+    at a start from zero), the search's none. Returns the graph, whose
+    ``out`` (a view of ``flow_buf`` at ``out_size``) holds the result;
+    ``flow`` read from ``prev.out`` is read in place."""
     rec = dg.graphs.get(key)
     if rec is None:
         count("flow.graph.capture")
         if flow is None or (prev is not None and flow is prev.out):
             flow_in, copy_in = flow, False
         else:
-            flow_in, copy_in = _flow_view(flow_buf, sizes[level]), True
+            flow_in, copy_in = _flow_view(flow_buf, flow.shape[-2:]), True
             flow_in.copy_(flow)
-        out = _flow_view(flow_buf, sizes[max(level - 1, 0)])
-
-        def step():
-            return _level_step(static, flow_in, level, sizes, params, use_temporal, site)
-
-        rec = dg.graphs[key] = _LevelGraph(_capture(step, out, dg), flow_in, copy_in, out)
+        out = _flow_view(flow_buf, out_size)
+        graph = _capture(lambda: body(flow_in), out, dg)
+        rec = dg.graphs[key] = _LevelGraph(graph, flow_in, copy_in, out)
     else:
         count("flow.graph.replay")
         if rec.copy_in:
             rec.flow_in.copy_(flow)
         elif flow is not rec.flow_in:
-            raise RuntimeError(f"flow level graph {key} was captured on another input")
+            raise RuntimeError(f"flow graph {key} was captured on another input")
     rec.graph.replay()
     return rec
 
@@ -746,15 +774,23 @@ def compute_flow(
     On a CUDA device each pyramid level that launches no hand-written
     kernel (:func:`_level_graphed`) runs as a CUDA graph, captured at the
     first call with its key (:func:`_graph_key`) and replayed after: the
-    prologue's results are copied into the device's persistent buffers,
-    the graphs read those and each other's outputs, the hinted search
-    runs eagerly before the coarsest level's graph, and the final resize
-    and blur read the finest level's output into a fresh tensor.
+    prologue's results and ``hint`` are copied into the device's
+    persistent buffers, the graphs read those and each other's outputs,
+    the hinted search runs as a graph of its own (the coarsest level's key
+    and ``"search"``) in front of the coarsest level's graph where that
+    level is graphed, and the final resize and blur read the finest
+    level's output into a fresh tensor. On the CPU everything runs
+    eagerly.
 
     Traced as a span ``flow`` (``site``, ``batch``) holding one
     ``flow.level`` span per pyramid level (``level``, 0 the finest;
     ``finest``; the level's ``h``, ``w``; ``graphed``), which counts
-    ``flow.graph.capture``, ``flow.graph.replay`` or ``flow.graph.eager``."""
+    ``flow.graph.capture``, ``flow.graph.replay`` or ``flow.graph.eager``.
+    With the search, the coarsest level's span holds a span
+    ``flow.search`` (``site``; the level's ``h``, ``w``; ``offsets``, the
+    offsets tried besides the start; ``graphed``), which counts
+    ``flow.search.offsets`` (the offsets evaluated) and how the search
+    ran, under the same three ``flow.graph.*`` names."""
     B, C, H, W = img0.shape
     if C != 4:
         raise ValueError("expected RGBA input")
@@ -785,11 +821,13 @@ def compute_flow(
             flow = _levels(src, None, search, sizes, graphed, params, use_temporal, site)
             return _final_flow(flow, H, W, params)
         with _device_graphs(dev).use() as dg:
-            static, flow_buf = dg.layout(B, dh, dw, use_temporal)
+            static, flow_buf, hint_buf = dg.layout(B, dh, dw, use_temporal)
             for buf, t in zip(static, src):
                 buf.copy_(t)
-            flow = _levels(src, (dg, static, flow_buf), search, sizes, graphed, params,
-                           use_temporal, site)
+            if search is not None:
+                hint_buf.copy_(search)
+            flow = _levels(src, (dg, static, flow_buf, hint_buf), search, sizes, graphed,
+                           params, use_temporal, site)
             return _final_flow(flow, H, W, params)
 
 
@@ -797,29 +835,39 @@ def _levels(src, graphs, search, sizes, graphed, params: FlowParams,
             use_temporal: bool, site: str):
     """The pyramid from the coarsest level to the finest: eager levels on
     ``src``, graphed ones through ``graphs`` = (the device's graphs, the
-    loaded copies of ``src``, the flow buffer)."""
+    loaded copies of ``src``, the flow buffer, the loaded hints)."""
     B = src[0].shape[0]
     flow, prev = None, None
     for level in range(len(sizes) - 1, -1, -1):
         lh, lw = sizes[level]
         g = graphed[level]
         with span("flow.level", level=level, finest=level == 0, h=lh, w=lw, graphed=g):
+            key = None
+            if g:
+                dg, static, flow_buf, hint_buf = graphs
+                key = _graph_key(dg.device, site, params, use_temporal, B, level, (lh, lw),
+                                 sizes[0])
+            if flow is None and search is not None:
+                tried = len(_search_boxes(params)[0])
+                with span("flow.search", site=site, h=lh, w=lw, offsets=tried, graphed=g):
+                    count("flow.search.offsets", tried)
+                    if g:
+                        body = partial(_search_step, static, level=level, sizes=sizes,
+                                       params=params, hint=hint_buf)
+                        prev = _run_graphed(dg, key + ("search",), body, flow_buf, None,
+                                            (lh, lw))
+                        flow = prev.out
+                    else:
+                        count("flow.graph.eager")
+                        flow = _search_step(src, None, level, sizes, params, search)
             if not g:
                 count("flow.graph.eager")
-                flow = _level_step(src, flow, level, sizes, params, use_temporal, site,
-                                   hint=search)
+                flow = _level_step(src, flow, level, sizes, params, use_temporal, site)
                 prev = None
                 continue
-            if flow is None and search is not None:
-                # the hinted search stays eager, in front of the level's graph
-                flow = torch.zeros((B, 2, lh, lw), dtype=torch.float32, device=src[0].device)
-                flow = _adjust_initial_flow(*_level_inputs(src, level, lh, lw), flow,
-                                            search, params)
-            dg, static, flow_buf = graphs
-            key = _graph_key(dg.device, site, params, use_temporal, B, level, (lh, lw),
-                             sizes[0])
-            prev = _run_graphed(dg, key, static, flow_buf, flow, prev, level, sizes,
-                                params, use_temporal, site)
+            body = partial(_level_step, static, level=level, sizes=sizes, params=params,
+                           use_temporal=use_temporal, site=site)
+            prev = _run_graphed(dg, key, body, flow_buf, flow, sizes[max(level - 1, 0)], prev)
             flow = prev.out
     return flow
 

@@ -4,9 +4,10 @@ On the CPU: which levels are captured (a function of the device and the
 sampler's route), the key, the device constants built once, and the
 graphed level loop itself, run with a stand-in for the capture that
 replays a level's body on the same persistent buffers, so the loading of
-inputs, the chaining of outputs, the eager search and the counters are
-held to the eager flow bit for bit. ``gpu``-marked: the same on the card
-with real graphs. No JAX here, so the file runs on the card with
+inputs, the chaining of outputs, the search's own graph and the counters
+are held to the eager flow bit for bit. ``gpu``-marked: the same on the
+card with real graphs, and the search's span free of copies and
+synchronises. No JAX here, so the file runs on the card with
 ``--noconftest``.
 """
 
@@ -15,7 +16,13 @@ import pytest
 import torch
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-from surround360_tpu_torch.flow import HINT_DOWN, HINT_LEFT, compute_flow, make_flow_params
+from surround360_tpu_torch.flow import (
+    HINT_DOWN,
+    HINT_LEFT,
+    HINT_RIGHT,
+    compute_flow,
+    make_flow_params,
+)
 from surround360_tpu_torch.flow import pixflow as TPF
 from surround360_tpu_torch.ops import fused_window as fw
 from surround360_tpu_torch.ops import resize as R
@@ -265,33 +272,107 @@ def test_graphed_loop_keeps_k3_levels_eager(fake_graphs, monkeypatch):
     assert all(k[0] == fw.K3 for k in want_rec)
 
 
-def test_search_runs_outside_the_graphs(fake_graphs, monkeypatch):
-    """pixflow_search_20: the hinted search runs eagerly before the
-    coarsest level's graph, never inside a captured body."""
-    inside = []
-    real_capture, real_search = TPF._capture, TPF._adjust_initial_flow
-    depth = [0]
+def test_search_runs_in_its_own_graph(fake_graphs, monkeypatch):
+    """pixflow_search_20: the hinted search runs inside a captured body of
+    its own (the coarsest level's key and "search"), in front of the
+    coarsest level's graph, and never eagerly or inside a level's body."""
+    where = []
+    real_capture, real_search, real_level = (
+        TPF._capture, TPF._adjust_initial_flow, TPF._level_step)
+    depth = {"graph": 0, "level": 0}
 
-    def capture(step, out, dg):
-        def tracked():
-            depth[0] += 1
+    def enter(name, fn):
+        def tracked(*args, **kw):
+            depth[name] += 1
             try:
-                return step()
+                return fn(*args, **kw)
             finally:
-                depth[0] -= 1
-        return real_capture(tracked, out, dg)
+                depth[name] -= 1
+        return tracked
 
-    def search(*args):
-        inside.append(depth[0])
-        return real_search(*args)
-
-    monkeypatch.setattr(TPF, "_capture", capture)
-    monkeypatch.setattr(TPF, "_adjust_initial_flow", search)
+    monkeypatch.setattr(TPF, "_capture",
+                        lambda step, out, dg: real_capture(enter("graph", step), out, dg))
+    monkeypatch.setattr(TPF, "_level_step", enter("level", real_level))
+    monkeypatch.setattr(TPF, "_adjust_initial_flow",
+                        lambda *a: where.append(dict(depth)) or real_search(*a))
+    params = make_flow_params("pixflow_search_20")
     a, b = _frames(4, 1, 2, 80, 144)[0]
     for _ in range(2):
-        compute_flow(a, b, make_flow_params("pixflow_search_20"),
-                     hint=torch.full((2,), HINT_LEFT, dtype=torch.int32))
-    assert inside == [0, 0]
+        compute_flow(a, b, params, hint=torch.full((2,), HINT_LEFT, dtype=torch.int32))
+    # the capture's warm-up, its first replay, the second call's replay
+    assert where == [{"graph": 1, "level": 0}] * 3
+    (dg,) = TPF._DEVICE_GRAPHS.values()
+    searches = [k for k in dg.graphs if k[-1] == "search"]
+    coarsest = len(TPF._pyramid_sizes(40, 72, params)) - 1
+    assert len(searches) == 1 and searches[0][5] == coarsest
+    assert searches[0][:-1] in dg.graphs
+
+
+@pytest.mark.parametrize("hints", [[HINT_LEFT] * 2, [HINT_RIGHT] * 2, [HINT_DOWN] * 2,
+                                   [HINT_DOWN, HINT_LEFT]],
+                         ids=["left", "right", "down", "mixed"])
+def test_graphed_search_equals_eager(fake_graphs, monkeypatch, hints):
+    """The search's graph replayed with other hints than it was captured
+    with: each call's search and flow equal the eager ones of its own
+    hints bit for bit (the hints are read from the arena at every
+    replay)."""
+    params = make_flow_params("pixflow_search_20")
+    a, b = _frames(9, 1, 2, 64, 112)[0]
+    calls = [[TPF.HINT_UNKNOWN] * 2, hints, hints[::-1]]  # no box holds UNKNOWN
+    searched = []
+    real_search = TPF._search_step
+    monkeypatch.setattr(TPF, "_search_step",
+                        lambda *a, **kw: searched.append(real_search(*a, **kw)) or searched[-1])
+
+    def run():
+        searched.clear()
+        flows = [(compute_flow(a, b, params, hint=torch.tensor(h, dtype=torch.int32)),)
+                 for h in calls]
+        return flows, [s.clone() for s in searched]
+
+    (got, got_s), (want, want_s) = _eager_then_graphed(fake_graphs, monkeypatch, run)
+    _assert_same(got, want)
+    assert len(want_s) == 3 and len(got_s) == 4  # the capture's warm-up first
+    _assert_same([got_s[1:]], [want_s])
+    assert not want_s[0].any() and want_s[1].any()  # the hints change the search
+
+
+def test_search_span_and_counters(fake_graphs, monkeypatch):
+    """One ``flow.search`` span per flow call, inside the coarsest level's
+    span, with the offsets tried and whether it was graphed; it counts
+    the offsets and its capture, then replays; eager on the CPU."""
+    params = make_flow_params("pixflow_search_20")
+    (a, b), = _frames(5, 1, 2, 80, 144)
+    n = len(TPF._pyramid_sizes(40, 72, params))
+    tried = len(TPF._search_offsets(params)) - 1
+    assert tried == 56
+
+    def spans():
+        with tracing.recording():
+            prepare_pair_flows(a, b, params, site="side_flow")
+            compute_flow(a, b, params, hint=torch.full((2,), HINT_DOWN, dtype=torch.int32),
+                         site="side_flow")
+        rec = tracing.session()
+        by_id = {s.id: s for s in rec}
+        searches = [s for s in rec if s.name == "flow.search"]
+        assert len(searches) == 3
+        for s in searches:
+            level = by_id[s.parent]
+            assert level.name == "flow.level" and level.attrs["level"] == n - 1
+            assert s.attrs == dict(site="side_flow", h=level.attrs["h"], w=level.attrs["w"],
+                                   offsets=tried, graphed=level.attrs["graphed"])
+        return searches
+
+    graphed = spans()
+    assert all(s.attrs["graphed"] is True for s in graphed)
+    assert [s.counts for s in graphed] == (
+        [{"flow.search.offsets": tried, "flow.graph.capture": 1}]
+        + [{"flow.search.offsets": tried, "flow.graph.replay": 1}] * 2)
+    _clear()
+    monkeypatch.setattr(TPF, "_graphable", lambda device: False)
+    eager = spans()
+    assert [s.counts for s in eager] == [
+        {"flow.search.offsets": tried, "flow.graph.eager": 1}] * 3
 
 
 def test_counters_capture_once_then_replay(fake_graphs):
@@ -425,3 +506,58 @@ def test_card_k3_launches_and_records_equal_eager(card):
                for i, (h, w) in enumerate(TPF._pyramid_sizes(128, 192, params))]
     assert True in graphed and False in graphed
     assert np.isfinite(torch.stack([f[0] for f in got]).cpu().numpy()).all()
+
+
+@pytest.mark.gpu
+def test_card_graphed_search_equals_eager(card):
+    """pixflow_search_20 on the card: both pair directions, the pole call
+    and mixed hints, over a temporal chain; the graphed flows equal the
+    eager ones bit for bit."""
+    params = make_flow_params("pixflow_search_20")
+    pair = _frames(0, 3, 14, 114, 166, CUDA)
+    pole = _frames(1, 3, 4, 96, 80, CUDA)
+    mixed = _frames(3, 2, 3, 96, 144, CUDA)
+
+    def run():
+        out = (_chain(pair, params, True, HINT_LEFT, "side_flow")
+               + _chain(pole, params._replace(**POLE_HALOS), False, HINT_DOWN, "pole_flow"))
+        hints = torch.tensor([HINT_LEFT, HINT_DOWN, HINT_RIGHT], dtype=torch.int32,
+                             device=CUDA)
+        for a, b in mixed:
+            out.append((compute_flow(a, b, params, hint=hints, site="mixed"),
+                        compute_flow(a, b, params, hint=hints.flip(0), site="mixed")))
+        return out
+
+    got, want = card(run)
+    _assert_same(got, want)
+
+
+@pytest.mark.gpu
+def test_card_search_copies_and_synchronises_nothing(card):
+    """After its capture, the search's span on the card holds its graph's
+    launch and no copy or synchronise."""
+    params = make_flow_params("pixflow_search_20")
+    (a, b), = _frames(5, 1, 14, 114, 166, CUDA)
+    _clear()
+    hint = torch.full((14,), HINT_LEFT, dtype=torch.int32, device=CUDA)
+    compute_flow(a, b, params, hint=hint, site="side_flow")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            compute_flow(a, b, params, hint=hint, site="side_flow")
+        torch.cuda.synchronize()
+    # the host's side: the spans and the runtime calls (the trace also
+    # gives each span again on the device's timeline)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    searches = [e.time_range for e in events if e.name == "flow.search"]
+    assert len(searches) == 2
+
+    def inside(e):
+        return any(r.start <= e.time_range.start and e.time_range.end <= r.end
+                   for r in searches)
+
+    names = [e.name for e in events if inside(e)]
+    assert any("GraphLaunch" in n for n in names), names
+    bad = [n for n in names if "ynchronize" in n or "emcpy" in n]
+    assert bad == []
