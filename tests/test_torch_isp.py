@@ -250,6 +250,99 @@ def test_isp_process_batched_equals_per_frame():
         TP.isp_process(torch.from_numpy(raw), tc, resize=3)
 
 
+def _clear_tables():
+    TP._TABLES.clear()
+    TP._device_masks.cache_clear()
+
+
+@pytest.mark.parametrize("case", ["full", "bilinear", "frequency", "skip_tone_curve",
+                                  "resize2", "stuck_odd_radius"])
+def test_warm_call_equals_cold_and_cleared(case):
+    """The tables kept on the device change nothing: a second call with
+    the same configuration and shape, and a call after the cache is
+    cleared, equal the first (cold) call bit for bit."""
+    kw = dict(CASES[case])
+    cfg = TP.IspConfig(**kw.pop("cfg"))
+    raw = torch.from_numpy(smooth_raw((2, 48, 64), seed=8))
+    _clear_tables()
+    cold = TP.isp_process(raw, cfg, **kw)
+    assert len(TP._TABLES) == 1
+    warm = TP.isp_process(raw, cfg, **kw)
+    _clear_tables()
+    cleared = TP.isp_process(raw, cfg, **kw)
+    assert torch.equal(warm, cold) and torch.equal(cleared, cold)
+
+
+def test_configs_share_masks_and_keep_their_own_tables():
+    """Two cameras differing in white balance and vignette share one set
+    of Bayer masks (the same tensors) and keep their own gains; a second
+    size is an entry of its own."""
+    a = TP.IspConfig(**FULL)
+    b = dataclasses.replace(a, white_balance_gain=(1.1, 1.0, 1.6),
+                            vignette_rolloff_h=((1.0, 1.0, 1.0), (1.1, 1.1, 1.1)))
+    raw = torch.from_numpy(smooth_raw((32, 40), seed=9))
+    _clear_tables()
+    out_a, out_b = TP.isp_process(raw, a), TP.isp_process(raw, b)
+    assert not torch.equal(out_a, out_b)
+    cpu = torch.device("cpu")
+    ta, tb = TP._tables(a, 32, 40, cpu), TP._tables(b, 32, 40, cpu)
+    assert len(TP._TABLES) == 2
+    assert all(x is y for x, y in zip(ta.masks, tb.masks))
+    for got, want in zip(ta.masks, TP.bayer_masks(a, 32, 40)):
+        assert np.array_equal(got.numpy(), want)
+    assert [float(g) for g in ta.gain] == [np.float32(v) for v in a.white_balance_gain]
+    assert [float(g) for g in tb.gain] == [np.float32(v) for v in b.white_balance_gain]
+    assert not torch.equal(ta.vh, tb.vh) and torch.equal(ta.vv, tb.vv)
+    vh, vv = TP.build_vignette_gains(b, 32, 40)
+    assert np.array_equal(tb.vh.numpy(), vh) and np.array_equal(tb.vv.numpy(), vv)
+    tc = TP._tables(a, 16, 20, cpu)
+    assert len(TP._TABLES) == 3 and tc.masks[0].shape == (16, 20)
+
+
+def test_batched_call_on_warm_tables_equals_per_frame():
+    """Every frame of a batch shares the tables of its plane size: a
+    batched call after per-frame calls equals them."""
+    cfg = TP.IspConfig(**FULL)
+    raw = torch.from_numpy(smooth_raw((3, 32, 40), seed=10))
+    _clear_tables()
+    frames = [TP.isp_process(raw[i], cfg) for i in range(3)]
+    batched = TP.isp_process(raw, cfg)
+    assert len(TP._TABLES) == 1
+    for i in range(3):
+        assert float((batched[i] - frames[i]).abs().max()) <= 1e-6
+
+
+def test_tables_span_counts_miss_then_hit():
+    from surround360_tpu_torch.utils import tracing
+
+    cfg = TP.IspConfig(**FULL)
+    raw = torch.from_numpy(smooth_raw((32, 40), seed=11))
+    _clear_tables()
+    with tracing.recording():
+        for shape in ((32, 40), (32, 40), (16, 20), (32, 40)):
+            TP.isp_process(raw[: shape[0], : shape[1]], cfg)
+    counts = [s.counts for s in tracing.session() if s.name == "isp.tables"]
+    assert counts == [{"isp.tables.miss": 1}, {"isp.tables.hit": 1},
+                      {"isp.tables.miss": 1}, {"isp.tables.hit": 1}]
+    assert tracing.totals()["isp"]["counts"] == {"isp.tables.miss": 2, "isp.tables.hit": 2}
+
+
+def test_tables_cache_keeps_the_last_used():
+    """Bounded at TABLES_KEEP entries, least recently used out first."""
+    cpu = torch.device("cpu")
+    cfgs = [TP.IspConfig(white_balance_gain=(1.0 + i / 100, 1.0, 1.0))
+            for i in range(TP.TABLES_KEEP + 1)]
+    _clear_tables()
+    for c in cfgs[:-1]:
+        TP._tables(c, 8, 8, cpu)
+    first = TP._tables(cfgs[0], 8, 8, cpu)  # a hit: now the last used
+    TP._tables(cfgs[-1], 8, 8, cpu)
+    assert len(TP._TABLES) == TP.TABLES_KEEP
+    keys = [k[0] for k in TP._TABLES]
+    assert cfgs[1] not in keys and keys[-2:] == [cfgs[0], cfgs[-1]]
+    assert TP._tables(cfgs[0], 8, 8, cpu) is first
+
+
 def test_companding_matches_jax_interp():
     """jnp.interp by torch.searchsorted: inside the table, on its knots,
     beyond both ends; within 1e-6."""

@@ -13,6 +13,7 @@ import torch
 
 from surround360_tpu_torch.flow import compute_flow, make_flow_params
 from surround360_tpu_torch.geometry.rig import make_ring_rig
+from surround360_tpu_torch.isp import pipeline as isp_pipeline
 from surround360_tpu_torch.isp.pipeline import IspConfig, isp_process
 from surround360_tpu_torch.ops import fused_window as fw
 from surround360_tpu_torch.render.panorama import (
@@ -95,8 +96,10 @@ def test_flow_levels_and_isp_steps():
     a, b = torch.rand((2, 4, 96, 128), generator=g), torch.rand((2, 4, 96, 128), generator=g)
     raw = torch.rand((32, 48), generator=g)
     cfg = IspConfig(bayer_pattern="GBRG", sharpening=(0.3, 0.3, 0.3))
+    isp_pipeline._TABLES.clear()
     with tracing.recording():
         compute_flow(a, b, make_flow_params("pixflow_tpu"), site="test")
+        isp_process(raw, cfg)
         isp_process(raw, cfg)
     spans = _recorded()
     (flow,) = [s for s in spans if s.name == "flow"]
@@ -104,10 +107,14 @@ def test_flow_levels_and_isp_steps():
     levels = [(s.attrs["level"], s.attrs["finest"], s.attrs["h"], s.attrs["w"])
               for s in _children(spans, flow)]
     assert levels == [(1, False, 24, 32), (0, True, 48, 64)]
-    (isp,) = [s for s in spans if s.name == "isp"]
-    assert [s.name for s in _children(spans, isp)] == [
-        "isp.tables", "isp.correct", "isp.stuck", "isp.demosaic", "isp.color",
-        "isp.sharpen"]
+    isps = [s for s in spans if s.name == "isp"]
+    for isp in isps:
+        assert [s.name for s in _children(spans, isp)] == [
+            "isp.tables", "isp.correct", "isp.stuck", "isp.demosaic", "isp.color",
+            "isp.sharpen"]
+    # the first call makes the tables, the second finds them
+    assert [_children(spans, isp)[0].counts for isp in isps] == [
+        {"isp.tables.miss": 1}, {"isp.tables.hit": 1}]
 
 
 def test_setup_spans_are_recorded_with_tracing_off():
