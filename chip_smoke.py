@@ -211,8 +211,9 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from s360bench.bounds import HBM_BYTES_PER_S, call_bytes, touched_px
+
 TOL = 2e-5  # kernel vs twin: same f32 tap math, FMA contraction differs
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
@@ -373,51 +374,15 @@ def window_union_px(sy, sx, bh: int, wx: int, Hp: int, Wp: int):
     return (cover[:, :Hp, :Wp] > 0).sum(dim=(1, 2))
 
 
-def touched_px(args, kw, tiles: int = 64) -> int:
-    """Source pixels (summed over the leads) that the call's counted taps
-    read with a nonzero weight, offsets included: the twin's tap geometry
-    (window or interior test, borders, non-finite samples dropped) marked
-    into one flag per pixel, ``tiles`` tiles at a time."""
-    import torch
-
-    from surround360_tpu_torch.ops.fused_window import axis_taps
-
-    padded, sy, sx, xt, yt = args
-    L, _, Hp, Wp = padded.shape
-    T = xt.shape[0]
-    offs = kw.get("offsets") or ((0, 0),)
-    wx = kw["bw"] if (kw.get("base_bw") is None or kw.get("offsets")) else kw["base_bw"]
-    my, mx = kw.get("off_my", 0), kw.get("off_mx", 0)
-    cubic, clamp = kw["interpolation"] == "bicubic", kw["border"] == "clamp"
-    seen = torch.zeros(L * Hp * Wp, dtype=torch.bool, device=xt.device)
-    lead = torch.arange(L, device=xt.device)[None, :, None]
-    for t0 in range(0, T, tiles):
-        x, y = xt[t0:t0 + tiles], yt[t0:t0 + tiles]
-        oy, ox = (o[t0:t0 + tiles] for o in (sy, sx))
-        oy, ox = ((o[:, None] if o.ndim == 1 else o)[..., None] for o in (oy, ox))
-        finite = torch.isfinite(x) & torch.isfinite(y)
-        x, y = torch.where(finite, x, 0.0), torch.where(finite, y, 0.0)
-        ty = axis_taps(y, oy + my, kw["bh"] - 2 * my, kw["pad_y"], kw["n_y"], cubic, clamp)
-        tx = axis_taps(x, ox + mx, wx - 2 * mx, kw["pad_x"], kw["n_x"], cubic, clamp)
-        for dy, dx in offs:
-            for iy, wy in ty:
-                iy = iy + dy
-                for ix, wxx in tx:
-                    ix = ix + dx
-                    hit = (finite & (wy != 0) & (wxx != 0) & (iy >= 0) & (iy < Hp)
-                           & (ix >= 0) & (ix < Wp))
-                    seen[((lead * Hp + iy) * Wp + ix)[hit]] = True
-    return int(seen.sum())
-
-
 def call_bounds(args, kw) -> dict:
     """What one call must move and compute, and the least time an H100
     could take for it: the larger of bytes / 3.35 TB/s and FLOPs /
     67 TFLOP/s. Bytes: coordinates (8 B a sample), window origins (8 B a
     window) and outputs (4 B each) once, and the source pixels that the
-    taps read (:func:`touched_px`) once. ``window_src_bytes``, beside it,
-    is the source as the whole padded array or, where smaller, the union
-    of the call's windows. FLOPs: :func:`flops_per_sample`."""
+    taps read (``s360bench/bounds.py``'s ``touched_px``) once: the
+    benchmark's ``call_bytes``. ``window_src_bytes``, beside it, is the
+    source as the whole padded array or, where smaller, the union of the
+    call's windows. FLOPs: :func:`flops_per_sample`."""
     padded, sy, sx, xt, _ = args
     L, C, Hp, Wp = padded.shape
     T, _, P = xt.shape
@@ -426,10 +391,9 @@ def call_bounds(args, kw) -> dict:
     wx = kw["bw"] if (kw.get("base_bw") is None or offs) else kw["base_bw"]
     union = window_union_px(sy, sx, kw["bh"], wx, Hp, Wp)
     union_px = int(union.sum()) if sy.ndim == 2 else int(union[0]) * L
-    samples = T * L * P
     src_bytes = 4 * C * touched_px(args, kw)
-    nbytes = 8 * samples + 8 * sy.numel() + 4 * samples * O * C + src_bytes
-    flops = samples * flops_per_sample(kw["interpolation"], C, O)
+    nbytes = call_bytes(args, kw)
+    flops = T * L * P * flops_per_sample(kw["interpolation"], C, O)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
     return dict(bytes=nbytes, flops=flops, src_bytes=src_bytes,
@@ -494,12 +458,9 @@ def phase_device():
 
 def phase_build():
     from surround360_tpu_torch import cuda_build
-    from surround360_tpu_torch.ops import fused_window as fw
 
     t0 = time.perf_counter()
     seconds = cuda_build.build_all()
-    for kernel in fw.KERNELS:
-        fw._load_library(kernel)
     for source, secs in seconds.items():
         log(f"[2 build] {source}: nvcc {secs:.1f} s")
         for line in cuda_build.ptxas_report(source):
@@ -659,6 +620,7 @@ def _refused_launch():
     usable. Returns the failure, or None."""
     import torch
 
+    from surround360_tpu_torch.cuda_build import launch_count
     from surround360_tpu_torch.ops import fused_window as fw
 
     W = 15000
@@ -668,7 +630,7 @@ def _refused_launch():
     yt = torch.rand((1, 1, 64), device="cuda") * 7
     kw = dict(bh=8, pad_y=0, pad_x=0, n_y=8, n_x=W, interpolation="bicubic",
               border="constant")
-    before = fw.launch_count()
+    before = launch_count()
     try:
         fw.fused_window_sample(src, origin, origin, xt, yt, bw=W, **kw)
     except RuntimeError as e:
@@ -676,7 +638,7 @@ def _refused_launch():
             return f"a refused launch raised another error: {e}"
     else:
         return "a 15000 px window row did not raise"
-    if fw.launch_count() != before:
+    if launch_count() != before:
         return "a refused launch was counted"
     got = fw.fused_window_sample(src, origin, origin, xt, yt, bw=W, base_bw=6000,
                                  **kw)
@@ -692,12 +654,15 @@ def phase_small():
     end, so that the later phases still measure."""
     import torch
 
+    from surround360_tpu_torch.cuda_build import launch_count
+
     worst: dict = {}
     failed = []
     rng = np.random.default_rng(0)
     for kernel, name, arrays, kw in _small_cases(rng):
         call, twin = _twin_call(kernel)
         dev = [torch.from_numpy(a).cuda() for a in arrays]
+        before = launch_count(kernel)
         got = call(*dev, **kw)
         torch.cuda.synchronize()
         want = twin(*dev, **kw)
@@ -705,6 +670,9 @@ def phase_small():
         bad = not torch.isfinite(got).all() or err > TOL
         if bad:
             failed.append(f"{kernel} vs twin {name}: max-abs {err}")
+            log(f"[3 small] FAILED {failed[-1]}")
+        if launch_count(kernel) != before + 1:
+            failed.append(f"{kernel} {name}: {launch_count(kernel) - before} launches counted")
             log(f"[3 small] FAILED {failed[-1]}")
         n, n_bad, w = worst.get(kernel, (0, 0, 0.0))
         worst[kernel] = (n + 1, n_bad + bad, max(w, err))
@@ -743,6 +711,7 @@ def phase_main_path(rig, preset, device):
     import torch
 
     from surround360_tpu_torch.benchmarks.preset_table import preset_config
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
     from surround360_tpu_torch.render.panorama import (
         build_render_context,
@@ -758,19 +727,18 @@ def phase_main_path(rig, preset, device):
         f"{ctx.strip_w}, poles {ctx.top_h} rows)")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    fw.RECORD = {}
     times = []
     state = None
-    fw.reset_launch_counts()
-    for frame in range(FRAMES):
-        t0 = time.perf_counter()
-        out, state = render_frame(ctx, *inputs, state=state,
-                                  use_temporal=frame > 0)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    sites = {s: fw.launch_count(fw.K1, s) for s in K1_SITES}
-    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
-    record, fw.RECORD = fw.RECORD, None
+    reset_launch_counts()
+    with fw.recorded() as record:
+        for frame in range(FRAMES):
+            t0 = time.perf_counter()
+            out, state = render_frame(ctx, *inputs, state=state,
+                                      use_temporal=frame > 0)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+    sites = {s: launch_count(fw.K1, s) for s in K1_SITES}
+    launches = {k: launch_count(k) for k in fw.KERNELS}
     eqr = out["equirect"]
     cfg = ctx.config
     want = (3, cfg.final_eqr_height, cfg.final_eqr_width)
@@ -920,6 +888,7 @@ def phase_cli(rig, views):
 
     from surround360_tpu_torch.cli.common import read_image_rgba
     from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -934,14 +903,13 @@ def phase_cli(rig, views):
               "--polar_flow_alg", "pixflow_tpu_offsets"]
     chained = os.path.join(WORK, "chained")
     states = os.path.join(WORK, "state")
-    fw.RECORD = {}
-    fw.reset_launch_counts()
-    state, wall, stages, peak = _video(
-        common + ["--output_dir", chained, "--start_frame", "0",
-                  "--end_frame", "1", "--save_state_dir", states])
-    sites = {s: fw.launch_count(fw.K3, s) for s in FLOW_SITES}
-    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
-    record, fw.RECORD = fw.RECORD, None
+    reset_launch_counts()
+    with fw.recorded() as record:
+        state, wall, stages, peak = _video(
+            common + ["--output_dir", chained, "--start_frame", "0",
+                      "--end_frame", "1", "--save_state_dir", states])
+    sites = {s: launch_count(fw.K3, s) for s in FLOW_SITES}
+    launches = {k: launch_count(k) for k in fw.KERNELS}
     if any(n == 0 for n in sites.values()):
         raise AssertionError(f"K3 not launched at every flow site: {sites}")
     if launches[fw.K2]:
@@ -1005,9 +973,8 @@ def phase_flow_sites(record, device):
                              tc=16, backend="kernel", site="side_flow_level0")
     if fn.backend != "kernel":
         raise AssertionError("the 6k side-flow level 0 is off the fused route")
-    fw.RECORD = {}
-    fn(xs, ys)
-    rec, fw.RECORD = fw.RECORD, None
+    with fw.recorded() as rec:
+        fn(xs, ys)
     k2 = _site_check("8 flow sites", (fw.K2, "side_flow_level0", None), rec, 0)
     return k3, k2
 
@@ -1224,6 +1191,7 @@ def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
 
     from surround360_tpu_torch.cli.common import read_image_rgba
     from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
 
     common = ["--rig_json_file", os.path.join(root, "rig.json"), "--imgs_dir",
@@ -1234,15 +1202,14 @@ def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
               "--side_flow_alg", FLOW_ALG, "--polar_flow_alg", FLOW_ALG,
               "--poleremoval_flow_alg", FLOW_ALG, "--device", device_name]
     chained, states = os.path.join(root, "chained"), os.path.join(root, "state")
-    fw.RECORD = {}
-    fw.reset_launch_counts()
-    state, wall, stages, peak = _video(
-        common + ["--output_dir", chained, "--start_frame", "0", "--end_frame",
-                  str(FRAMES - 1), "--save_state_dir", states])
-    k1_sites = {s: fw.launch_count(fw.K1, s) for s in K1_SITES + K1_PRODUCT_SITES}
-    k3_sites = {s: fw.launch_count(fw.K3, s) for s in FLOW_SITES + (POLE_REMOVAL_FLOW,)}
-    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
-    record, fw.RECORD = fw.RECORD, None
+    reset_launch_counts()
+    with fw.recorded() as record:
+        state, wall, stages, peak = _video(
+            common + ["--output_dir", chained, "--start_frame", "0", "--end_frame",
+                      str(FRAMES - 1), "--save_state_dir", states])
+    k1_sites = {s: launch_count(fw.K1, s) for s in K1_SITES + K1_PRODUCT_SITES}
+    k3_sites = {s: launch_count(fw.K3, s) for s in FLOW_SITES + (POLE_REMOVAL_FLOW,)}
+    launches = {k: launch_count(k) for k in fw.KERNELS}
     if device_name == "cuda":
         missing = [s for s, n in {**k1_sites, **k3_sites}.items() if n == 0]
         if missing:
@@ -2251,6 +2218,7 @@ def phase_mesh(ctx, inputs, device, frames=MESH_FRAMES):
     K1's launches of each mesh run."""
     import torch
 
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
     from surround360_tpu_torch.parallel import (
         make_render_mesh, shard_frame_batch, sharded_render_step)
@@ -2283,7 +2251,7 @@ def phase_mesh(ctx, inputs, device, frames=MESH_FRAMES):
     info = []
     for name, mesh, F, steps in meshes:
         step, _ = sharded_render_step(ctx, mesh, use_temporal=True)
-        fw.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         state, err = None, 0.0
         sharded = shard_frame_batch(mesh, batch[:F])
@@ -2294,11 +2262,11 @@ def phase_mesh(ctx, inputs, device, frames=MESH_FRAMES):
         _sync(device)
         secs = (time.perf_counter() - t0) / (F * steps)
         info.append(f"{name} {mesh.shape} F={F} x {steps} step(s): {secs:.3f} s a frame, "
-                    f"max-abs vs the chain {err:.3g}, K1 launches {fw.launch_count(fw.K1)}, "
-                    f"K3 {fw.launch_count(fw.K3)}")
+                    f"max-abs vs the chain {err:.3g}, K1 launches {launch_count(fw.K1)}, "
+                    f"K3 {launch_count(fw.K3)}")
         if not err <= MESH_TOL:
             raise AssertionError(f"mesh {name}: {err} > {MESH_TOL}")
-        if device.type == "cuda" and not fw.launch_count(fw.K1):
+        if device.type == "cuda" and not launch_count(fw.K1):
             raise AssertionError(f"mesh {name} launched no K1")
     peak = (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
             else float("nan"))
@@ -2349,6 +2317,7 @@ def phase_bench_entries(calib_root, device_name="cuda"):
     from surround360_tpu_torch import graft_entry
     from surround360_tpu_torch.cli import common, raw2rgb
     from surround360_tpu_torch.cli.tiff import write_tiff
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.isp.pipeline import IspConfig
     from surround360_tpu_torch.ops import fused_window as fw
 
@@ -2364,7 +2333,7 @@ def phase_bench_entries(calib_root, device_name="cuda"):
             f"frame), vs_baseline {line['vs_baseline']}, {peak}, subprocess {wall:.1f} s, "
             f"launches {launches}; metric {line['metric']!r}")
 
-    fw.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     fn, args = graft_entry.entry(device_name)
     out = fn(*args)
@@ -2377,7 +2346,7 @@ def phase_bench_entries(calib_root, device_name="cuda"):
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         err, err14 = graft_entry.dryrun_multichip(8, device_name)
     dry_s = time.perf_counter() - t0
-    runs["graft entry"] = {k: fw.launch_count(k) for k in fw.KERNELS}
+    runs["graft entry"] = {k: launch_count(k) for k in fw.KERNELS}
     _check_launches("graft entry", runs["graft entry"])
     if not (err < MESH_TOL and err14 < MESH_TOL):
         raise AssertionError(f"dryrun_multichip: {err}, {err14}")
@@ -2473,11 +2442,16 @@ def probe_check():
     per kernel site, the failures)."""
     import torch
 
+    from surround360_tpu_torch.cuda_build import launch_count
+
     errs, failed = {}, probe_tensor_cores()
     for site, name, args, call, twin, rel, floor in _probe_cases(
             np.random.default_rng(7), torch.device("cuda", 0)):
+        before = launch_count(site, name)
         got = call(name, *args)
         torch.cuda.synchronize()
+        if launch_count(site, name) != before + 1:
+            failed.append(f"{site} {name}: {launch_count(site, name) - before} launches counted")
         want = twin(name, *args)
         err = float((got - want).abs().max())
         scale = max(floor, float(want.abs().max()))
@@ -2586,13 +2560,14 @@ def phase_probes():
     from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
     from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
     from surround360_tpu_torch.benchmarks import probe_common as pc
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
 
-    pc.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = {**KS.main([]), **KB.main([])}
     wall = time.perf_counter() - t0
-    launches = {site: pc.launch_count(site) for site in PROBE_REPLACES}
-    per_variant = {name: pc.launch_count(None, name) for name in res}
+    launches = {site: launch_count(site) for site in PROBE_REPLACES}
+    per_variant = {name: launch_count(None, name) for name in res}
     log(f"[14 probes] kernel_step_cost.main and kernel_body_cost.main in {wall:.1f} s: "
         f"launches {launches}")
     if any(n == 0 for n in launches.values()):
@@ -2656,12 +2631,13 @@ def _probe_entry(site, launches, err, rows, nvcc_s):
 def _counted(fn):
     """fn() with the fused window kernels' launches counted from 0: returns
     (its result, launches per kernel, seconds)."""
-    from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
+    from surround360_tpu_torch.ops.fused_window import KERNELS
 
-    fw.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
-    return out, {k: fw.launch_count(k) for k in fw.KERNELS}, time.perf_counter() - t0
+    return out, {k: launch_count(k) for k in KERNELS}, time.perf_counter() - t0
 
 
 def phase_harnesses(rig, views, ctx, inputs, device, preset=PRESET,
@@ -2763,6 +2739,7 @@ def quick():
     pole-removal warp's and flow's) differs from the product's."""
     import torch
 
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.flow import HINT_DOWN, compute_flow, make_flow_params
     from surround360_tpu_torch.isp.pipeline import IspConfig, isp_process
     from surround360_tpu_torch.ops import fused_window as fw
@@ -2784,23 +2761,23 @@ def quick():
     ctx = SimpleNamespace(plans={}, config=RenderConfig(
         eqr_width=6300, eqr_height=3072, cubemap_width=CUBE, cubemap_height=CUBE))
     pano = rand(3, 3072, 6300)
-    fw.RECORD = {}
-    for label in ("with its host plans", "planned"):
-        t0 = time.perf_counter()
-        cube = _cubemap(ctx, pano)
-        torch.cuda.synchronize()
-        log(f"[sites] cubemap {tuple(cube.shape)} {label}: "
-            f"{time.perf_counter() - t0:.4f} s")
     # the pole-removal warp: 2048 x 2048, halos of 10% of the frame
     H = W = 2048
     halo = int(0.10 * H)
-    flow = gaussian_blur((rand(2, H, W) - 0.5) * 4000.0, 40.0).clamp(-halo, halo)
-    gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
-    sample_displaced(rand(4, H, W), gx + flow[0], gy + flow[1], halo_y=halo,
-                     halo_x=halo, interpolation="bicubic", border="constant", tr=16,
-                     tc=128, max_window_elems=64 * 1024 * 1024, site="pole_removal_warp")
-    record, fw.RECORD = fw.RECORD, None
+    with fw.recorded() as record:
+        for label in ("with its host plans", "planned"):
+            t0 = time.perf_counter()
+            cube = _cubemap(ctx, pano)
+            torch.cuda.synchronize()
+            log(f"[sites] cubemap {tuple(cube.shape)} {label}: "
+                f"{time.perf_counter() - t0:.4f} s")
+        flow = gaussian_blur((rand(2, H, W) - 0.5) * 4000.0, 40.0).clamp(-halo, halo)
+        gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+        gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+        sample_displaced(rand(4, H, W), gx + flow[0], gy + flow[1], halo_y=halo,
+                         halo_x=halo, interpolation="bicubic", border="constant", tr=16,
+                         tc=128, max_window_elems=64 * 1024 * 1024,
+                         site="pole_removal_warp")
     log(f"[sites] random flow of {float(flow.min()):.1f} .. {float(flow.max()):.1f} px")
     for site in K1_PRODUCT_SITES:
         _site_check("sites", (fw.K1, site, None), record, 1)
@@ -2810,15 +2787,14 @@ def quick():
     a[:, 3] = 1.0
     b = torch.roll(a, (3, 5), dims=(-2, -1))
     a, b = gaussian_blur(a, 3.0), gaussian_blur(b, 3.0)
-    fw.RECORD = {}
-    fw.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
-    compute_flow(a, b, make_flow_params(FLOW_ALG), site=POLE_REMOVAL_FLOW,
-                 hint=torch.tensor([HINT_DOWN], dtype=torch.int32, device=dev))
+    with fw.recorded() as record:
+        compute_flow(a, b, make_flow_params(FLOW_ALG), site=POLE_REMOVAL_FLOW,
+                     hint=torch.tensor([HINT_DOWN], dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     log(f"[sites] {FLOW_ALG} flow of a {W}x{H} pair: {time.perf_counter() - t0:.3f} "
-        f"s, K3 launches {fw.launch_count(fw.K3)}")
-    record, fw.RECORD = fw.RECORD, None
+        f"s, K3 launches {launch_count(fw.K3)}")
     d = lambda offs: max(abs(v) for o in offs for v in o)
     for key in sorted((k for k in record if k[0] == fw.K3), key=lambda k: -d(k[2])):
         _site_check("sites", key, record, record[key][3])
@@ -2876,19 +2852,18 @@ def main():
     card_dir, cpu_dir = phase_preview(root, rec_dir)
     phase_compare(card_dir, cpu_dir)
     # calibration (phases 19-21) runs no hand kernel: the counts stay 0
-    from surround360_tpu_torch.benchmarks import probe_common as pc
+    from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
 
-    fw.reset_launch_counts()
-    pc.reset_launch_counts()
+    reset_launch_counts()
     calib_root = os.path.join(WORK, "calib")
     phase_calib_unit(calib_root, rig)
     phase_calib_noise(rig)
     phase_calib_match(calib_root, rig)
     phase_vignetting(calib_root)
     phase_color(calib_root)
-    calib_launches = {k: fw.launch_count(k) for k in fw.KERNELS}
-    calib_launches["K4, K5"] = pc.launch_count()
+    calib_launches = {k: launch_count(k) for k in fw.KERNELS}
+    calib_launches["K4, K5"] = launch_count() - sum(calib_launches.values())
     log(f"[21 color] kernel launches in phases 19-21: {calib_launches}")
     if any(calib_launches.values()):
         raise AssertionError(f"calibration launched a sampler kernel: {calib_launches}")

@@ -126,22 +126,23 @@ def _sync(device):
 def _memstats(device):
     """The reference's S360_BENCH_MEMSTATS line, and the launches of the
     port's hand kernels since the counts were last reset."""
-    from .ops import fused_window as fw
+    from .cuda_build import launch_count
+    from .ops.fused_window import KERNELS
 
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device)
         total = torch.cuda.get_device_properties(device).total_memory
         print(f"# peak HBM {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB",
               file=sys.stderr)
-    launches = {k: fw.launch_count(k) for k in fw.KERNELS}
+    launches = {k: launch_count(k) for k in KERNELS}
     print(f"# kernel launches {json.dumps(launches)}", file=sys.stderr, flush=True)
 
 
 def _preset_bench(preset: str, device):
     """fps of the full preset pipeline with the temporal frame chain."""
     from .benchmarks.preset_table import frame_inputs, preset_config
+    from .cuda_build import reset_launch_counts
     from .geometry.rig import make_ring_rig
-    from .ops import fused_window as fw
     from .render.panorama import build_render_context, make_jitted_renderer
 
     n_frames = int(os.environ.get("S360_BENCH_FRAMES", "3"))
@@ -152,7 +153,7 @@ def _preset_bench(preset: str, device):
     render_t = make_jitted_renderer(ctx, use_temporal=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    fw.reset_launch_counts()
+    reset_launch_counts()
     out, state = render0(side, top, bottom, None)
     _sync(device)
     out, state = render_t(side, top, bottom, state)  # warm
@@ -175,8 +176,8 @@ def _preset_bench(preset: str, device):
 def _legacy_bench(device):
     """The reference's small-scale batch mode (bench.py:155-279)."""
     from .benchmarks.preset_table import frame_inputs
+    from .cuda_build import reset_launch_counts
     from .geometry.rig import make_ring_rig
-    from .ops import fused_window as fw
     from .render.panorama import (
         RenderConfig,
         build_render_context,
@@ -208,7 +209,7 @@ def _legacy_bench(device):
         top = bottom = None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    fw.reset_launch_counts()
+    reset_launch_counts()
 
     if frame_batch > 1:
 

@@ -26,12 +26,14 @@ Env: S360_STEP_REPS (10), S360_BODY_ONLY (one variant).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 
 import numpy as np
 import torch
 
+from .. import cuda_build
 from . import probe_common as pc
 
 __all__ = ["VARIANTS", "dot3", "body_cost", "body_cost_plain", "make_inputs",
@@ -122,17 +124,17 @@ def body_cost_plain(variant, shifts, xs, ys, win):
 
 def body_cost(variant, shifts, xs, ys, win):
     """The probe kernel ``variant`` on the card, or its twin for CPU
-    tensors; same arguments as :func:`body_cost_plain`. Counts one launch
-    in ``probe_common.LAUNCHES`` per kernel launch."""
+    tensors; same arguments as :func:`body_cost_plain`. Counts each launch
+    in ``cuda_build.LAUNCHES`` at (:data:`SITE`, variant)."""
     if pc.probe_device(shifts, xs, ys, win) == "cpu":
         return body_cost_plain(variant, shifts, xs, ys, win)
     _check(variant, shifts, xs, ys, win)
-    fn = pc.load_library(SOURCE, "s360_body_cost", 5, 3)
+    fn = cuda_build.entry(SOURCE, "s360_body_cost", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
     args = [a.contiguous() for a in (shifts, xs, ys, win)]
     n = xs.shape[0]
     out = torch.empty((n, C, PG), dtype=torch.float32, device=xs.device)
-    pc.launch(SITE, variant, fn, args + [out], [n, win.shape[0], _INDEX[variant]],
-              xs.device)
+    cuda_build.launch(SITE, variant, fn, args + [out], [n, win.shape[0], _INDEX[variant]],
+                      xs.device)
     return out
 
 

@@ -31,12 +31,14 @@ Env: S360_STEP_REPS (20).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 
 import numpy as np
 import torch
 
+from .. import cuda_build
 from . import probe_common as pc
 
 __all__ = ["VARIANTS", "STEPS", "step_cost", "step_cost_plain", "make_inputs",
@@ -124,7 +126,7 @@ def step_cost_plain(variant, x, win, big=None):
 def step_cost(variant, x, win, big=None):
     """The probe kernel ``variant`` (see the module docstring) on the card,
     or its twin for CPU tensors; same arguments as :func:`step_cost_plain`.
-    Counts one launch in ``probe_common.LAUNCHES`` per kernel launch."""
+    Counts each launch in ``cuda_build.LAUNCHES`` at (kernel site, variant)."""
     site, body = VARIANTS.get(variant, (None, None))
     src = big if site == SITE_DMA else win
     kind = pc.probe_device(x, *([] if src is None else [src]))
@@ -133,13 +135,13 @@ def step_cost(variant, x, win, big=None):
     src = _check(variant, x, win, big)
     entry = {SITE_VARIANT: "s360_step_variant", SITE_DYN: "s360_step_dyn",
              SITE_DMA: "s360_step_dma"}[site]
-    fn = pc.load_library(SOURCE, entry, 3, 2)
+    fn = cuda_build.entry(SOURCE, entry, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
     x, src = x.contiguous(), src.contiguous()
     n = x.shape[0]
     out = torch.empty((n, out_rows(variant), PG), dtype=torch.float32, device=x.device)
     arg = {SITE_VARIANT: _BODY.get(body), SITE_DYN: int(body == "unrolled"),
            SITE_DMA: src.shape[1]}[site]
-    pc.launch(site, variant, fn, [x, src, out], [n, arg], x.device)
+    cuda_build.launch(site, variant, fn, [x, src, out], [n, arg], x.device)
     return out
 
 

@@ -1,48 +1,24 @@
 """What the two kernel probes (``kernel_step_cost``, ``kernel_body_cost``)
 share: the bicubic tent, TF32 rounding (the K4 kernel's operand split), the
-build and load of a probe's CUDA library, the launch counts, the device
-check and the grid-contrast timers."""
+device check and the grid-contrast timers. Their kernels load, launch and
+count through ``cuda_build``, the site of a launch being its variant."""
 
 from __future__ import annotations
 
-import collections
-import ctypes
-import threading
 import time
 
 import torch
 
-from .. import cuda_build
-
 __all__ = [
-    "LAUNCHES",
-    "launch_count",
-    "reset_launch_counts",
     "tent",
     "tf32_round",
     "probe_device",
-    "load_library",
-    "launch",
     "device_ms",
     "host_ms",
     "per_step_us",
 ]
 
-# (kernel, variant) -> launches of the probe kernels
-LAUNCHES: collections.Counter = collections.Counter()
-_LIBS: dict = {}  # source file -> loaded ctypes library
-_LOCK = threading.Lock()  # guards LAUNCHES and _LIBS across threads
 SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of the timed launches
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-
-
-def launch_count(kernel: str | None = None, variant: str | None = None) -> int:
-    """Launches of ``kernel`` (any when None) as ``variant`` (any when None)."""
-    return sum(n for (k, v), n in LAUNCHES.items()
-               if kernel in (None, k) and variant in (None, v))
 
 
 def tent(d: torch.Tensor) -> torch.Tensor:
@@ -74,32 +50,6 @@ def probe_device(*tensors: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device: {next(iter(devs))}")
     return kind
-
-
-def load_library(source: str, entry: str, n_ptrs: int, n_ints: int):
-    """Build ``csrc/<source>`` (once per hash, see :mod:`..cuda_build`) and
-    return its C entry point ``entry``, which takes ``n_ptrs`` pointers,
-    ``n_ints`` ints and the stream."""
-    with _LOCK:
-        if source not in _LIBS:
-            _LIBS[source] = ctypes.CDLL(cuda_build.build(source))
-    fn = getattr(_LIBS[source], entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def launch(kernel: str, variant: str, fn, tensors, ints, device) -> None:
-    """Call the C entry point ``fn`` on ``tensors``' pointers and ``ints``
-    on the current stream of ``device``; raise on a launch error, else count
-    the launch."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} ({variant}) launch failed: CUDA error {err}")
-    with _LOCK:
-        LAUNCHES[(kernel, variant)] += 1
 
 
 def device_ms(call, reps: int) -> float:

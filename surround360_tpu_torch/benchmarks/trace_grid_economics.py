@@ -5,7 +5,7 @@ Port of ``benchmarks/trace_grid_economics.py``. The reference traces the
 frame with ``jax.eval_shape`` and ``S360_LOG_FUSED=1``, so each call of
 its Pallas sampler prints its grid, without compiling or running anything.
 The port has no trace-only mode, so it runs the frame (priorless, on the
-device asked for) with ``ops/fused_window.py``'s ``RECORD`` on, and prints
+device asked for) inside ``ops/fused_window.py``'s ``recorded()``, and prints
 one line per (kernel, call site, offset set): the launches, and the
 geometry of the launch with the most samples (tiles T, leads L, channels C,
 samples a tile P, offsets O, window rows x columns, source array, filter
@@ -30,7 +30,7 @@ __all__ = ["call_geometry", "run", "main"]
 
 
 def call_geometry(key, entry) -> dict:
-    """One ``fused_window.RECORD`` entry -> its geometry."""
+    """One entry of a ``fused_window.recorded()`` record -> its geometry."""
     kernel, site, offsets = key
     args, kw, _, launches = entry
     padded, _, _, xt, _ = args
@@ -68,12 +68,8 @@ def run(device, eqr_w=6300, cam_scale=1.0, side_flow_scale=0.5,
     cfg = ctx.config
     print(f"# running the full frame @ {cfg.eqr_width}x{cfg.eqr_height}/eye on "
           f"{device.type}", file=sys.stderr, flush=True)
-    saved, fw.RECORD = fw.RECORD, {}
-    try:
+    with fw.recorded() as record:
         out, _ = render_frame(ctx, *inputs, state={})
-        record = fw.RECORD
-    finally:
-        fw.RECORD = saved
     rows = [call_geometry(k, record[k]) for k in sorted(record, key=str)]
     del record
     for r in rows:

@@ -1,28 +1,49 @@
-"""The build of the port's CUDA sources (``csrc/*.cu``).
+"""The port's CUDA sources (``csrc/*.cu``): their build, their launches
+and the one account of those launches.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``_build/``, at first use, keyed by the hash of the source and the
-shared headers (``csrc/*.cuh``). The modules that launch a source's
-kernels (``ops/fused_window``, ``benchmarks/probe_common``) load the library
-with ctypes and bind their own entry points.
+shared headers (``csrc/*.cuh``). :func:`entry` loads a built library once
+and binds one of its C entry points; :func:`launch` calls it on the
+device's current stream, raises when the launch is refused and otherwise
+counts it. Every hand kernel (K1-K3 in ``ops/fused_window``, the K4 / K5
+probes in ``benchmarks/``) launches through it.
+
+``LAUNCHES`` counts the launches by (kernel, site), where the site is the
+caller's label (a probe's variant); each launch also counts as
+``launches.<kernel>`` in the innermost span of ``utils/tracing.py`` while
+tracing is on.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
+import torch
+
+from .utils import tracing
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "build_all", "ptxas_report",
-           "kernel_resources", "hmma_counts"]
+           "kernel_resources", "hmma_counts", "entry", "launch", "LAUNCHES",
+           "launch_count", "reset_launch_counts"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict = {}  # source file -> loaded ctypes library
+# guards LAUNCHES and _LIBS: frames may render on several threads
+_LOCK = threading.Lock()
 
 
 def _find_nvcc() -> str:
@@ -138,3 +159,47 @@ def build_all() -> dict[str, float]:
     sources = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         return dict(zip(sources, pool.map(timed, sources)))
+
+
+def entry(source: str, name: str, argtypes: list):
+    """The C entry point ``name`` of ``source``'s library, built and loaded
+    once, bound to ``argtypes`` followed by the stream; it returns a CUDA
+    error code."""
+    with _LOCK:
+        if source not in _LIBS:
+            _LIBS[source] = ctypes.CDLL(build(source))
+        fn = getattr(_LIBS[source], name)
+        if fn.argtypes is None:
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(kernel: str, site: str, fn, tensors, scalars, device) -> None:
+    """Call the entry point ``fn`` on ``tensors``' data pointers, then
+    ``scalars`` and the current stream of ``device``; raise when the launch
+    is refused, else count it (:func:`_count`). Tensors and scalars come
+    apart, so that the launch path tests no argument's type (a host cost
+    paid at every launch)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} ({site}) launch failed: CUDA error {err}")
+    _count(kernel, site)
+
+
+def _count(kernel: str, site: str) -> None:
+    with _LOCK:
+        LAUNCHES[(kernel, site)] += 1
+    tracing.count("launches." + kernel)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def launch_count(kernel: str | None = None, site: str | None = None) -> int:
+    """Launches of ``kernel`` (any when None) at ``site`` (any when None)."""
+    return sum(n for (k, s), n in LAUNCHES.items()
+               if kernel in (None, k) and site in (None, s))

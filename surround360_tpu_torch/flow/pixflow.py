@@ -583,9 +583,10 @@ def _graphable(device: torch.device) -> bool:
 def _level_graphed(device: torch.device, B: int, h: int, w: int,
                    params: FlowParams, is_finest: bool) -> bool:
     """Whether a level runs as a CUDA graph: on a CUDA device, where it
-    launches no hand-written kernel. The hand kernels' launches (``K3``)
-    stay eager, so ``fused_window.LAUNCHES``, ``RECORD`` and the per-call
-    hook see every one."""
+    launches no hand-written kernel. A level that launches K3 stays eager
+    because a replay would skip the Python of its calls: the launch call
+    (``cuda_build.launch``, which counts each launch) and the per-call hook
+    (``fused_window._record``) must see every call."""
     return _graphable(device) and not _level_uses_kernel(B, h, w, params, is_finest)
 
 

@@ -23,26 +23,24 @@ the same taps with the same window mask); a CUDA tensor launches the
 kernel, building it with ``nvcc`` on first use, or raises. There is no
 fallback from one to the other.
 
-``LAUNCHES`` counts kernel launches by (kernel, site), where kernel is one
-of :data:`KERNELS` and site is the caller's label, so a run can show which
-call sites went through which kernel; each launch also counts as
-``launches.<kernel>`` in the innermost span of ``utils/tracing.py`` while
-tracing is on. ``RECORD``, when set to a dict, keeps per (kernel, site,
-offsets) the inputs and output of the call with the most samples and the
-number of calls (launches on the card, twin calls on the CPU), for later
-comparison with the twin.
+Each launch goes through ``cuda_build.launch``, which counts it by
+(kernel, site), where kernel is one of :data:`KERNELS` and site is the
+caller's label, so a run can show which call sites went through which
+kernel. :func:`recorded` keeps per (kernel, site, offsets) the inputs and
+output of the call with the most samples and the number of calls
+(launches on the card, twin calls on the CPU), for later comparison with
+the twin.
 """
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import ctypes
 import threading
 
 import torch
 
 from .. import cuda_build
-from ..utils import tracing
 
 __all__ = [
     "KERNELS",
@@ -52,8 +50,7 @@ __all__ = [
     "fused_window_sample_folded_reference",
     "window_gather",
     "axis_taps",
-    "reset_launch_counts",
-    "LAUNCHES",
+    "recorded",
 ]
 
 # kernel name -> CUDA source under csrc/ (K2 and K3 share one source)
@@ -62,43 +59,32 @@ KERNELS = (K1, K2, K3)
 _SOURCES = {K1: "fused_window_sample.cu", K2: "fused_window_folded.cu",
             K3: "fused_window_folded.cu"}
 MAX_OFFSETS = 16  # csrc/fused_window_folded.cu kMaxOffsets
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# the entry points' arguments before the stream: pointers, then ints (K3:
+# then the offsets)
+_SAMPLE_ARGTYPES = [_VP] * 6 + [_INT] * 14
+_FOLDED_ARGTYPES = [_VP] * 6 + [_INT] * 17 + [_VP]
 
-LAUNCHES: collections.Counter = collections.Counter()
-RECORD: dict | None = None
-_LIBS: dict = {}  # source file -> loaded ctypes library
-# guards LAUNCHES, RECORD and _LIBS: frames may render on several threads
+_RECORD: dict | None = None  # the open record of :func:`recorded`
+# guards _RECORD: frames may render on several threads
 _LOCK = threading.Lock()
 
 
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-
-
-def launch_count(kernel: str | None = None, site: str | None = None) -> int:
-    """Launches of ``kernel`` (any when None) at ``site`` (any when None)."""
-    return sum(
-        n for (k, s), n in LAUNCHES.items()
-        if kernel in (None, k) and site in (None, s)
-    )
-
-
-def _load_library(kernel: str = K1):
-    """Build (once per source hash) and load ``kernel``'s shared library."""
-    source = _SOURCES[kernel]
+@contextlib.contextmanager
+def recorded():
+    """While open, keep per (kernel, site, offsets) of every K1-K3 call
+    (:func:`_record`) the call with the most samples as (args, kw, out,
+    calls of that key) in the dict this yields; the record open before is
+    put back on exit."""
+    global _RECORD
     with _LOCK:
-        if source in _LIBS:
-            return _LIBS[source]
-        lib = ctypes.CDLL(cuda_build.build(source))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        if source == _SOURCES[K1]:
-            fn = lib.s360_fused_window_sample
-            fn.argtypes = [vp] * 6 + [i] * 14 + [vp]
-        else:
-            fn = lib.s360_fused_window_folded
-            fn.argtypes = [vp] * 6 + [i] * 17 + [vp, vp]
-        fn.restype = i
-        _LIBS[source] = lib
-        return lib
+        saved, _RECORD = _RECORD, {}
+        record = _RECORD
+    try:
+        yield record
+    finally:
+        with _LOCK:
+            _RECORD = saved
 
 
 def _check_inputs(padded, sy, sx, xt, yt, interpolation, border, origin_shape):
@@ -228,27 +214,18 @@ def fused_window_sample_reference(
 
 
 def _record(kernel, site, args, kw, out):
-    """Keep the launch with the most samples per (kernel, site, offsets),
-    as (args, kw, out, launches of that key)."""
+    """Keep the call with the most samples per (kernel, site, offsets) in
+    the open record (:func:`recorded`), as (args, kw, out, calls of that
+    key)."""
     with _LOCK:
-        if RECORD is None:
+        if _RECORD is None:
             return
         key = (kernel, site, kw.get("offsets"))
-        n = RECORD[key][3] + 1 if key in RECORD else 1
-        if key not in RECORD or args[3].numel() > RECORD[key][0][3].numel():
-            RECORD[key] = (args, kw, out, n)
+        n = _RECORD[key][3] + 1 if key in _RECORD else 1
+        if key not in _RECORD or args[3].numel() > _RECORD[key][0][3].numel():
+            _RECORD[key] = (args, kw, out, n)
         else:
-            RECORD[key] = RECORD[key][:3] + (n,)
-
-
-# the launches' counter in the innermost tracing span
-_SPAN_KEYS = {k: "launches." + k for k in KERNELS}
-
-
-def _count(kernel, site):
-    with _LOCK:
-        LAUNCHES[(kernel, site)] += 1
-    tracing.count(_SPAN_KEYS[kernel])
+            _RECORD[key] = _RECORD[key][:3] + (n,)
 
 
 def fused_window_sample(
@@ -260,7 +237,7 @@ def fused_window_sample(
 
     padded (L, C, Hp, Wp) f32; sy, sx (T, L) int32 window origins in
     padded coords; xt, yt (T, L, P) f32 sample coords in padded units.
-    ``site`` labels the caller in ``LAUNCHES``."""
+    ``site`` labels the caller in ``cuda_build.LAUNCHES``."""
     kw = dict(
         bh=bh, bw=bw, pad_y=pad_y, pad_x=pad_x, n_y=n_y, n_x=n_x,
         interpolation=interpolation, border=border, base_bw=base_bw,
@@ -273,21 +250,14 @@ def fused_window_sample(
         raise ValueError(f"unsupported device: {padded.device}")
     _check_inputs(padded, sy, sx, xt, yt, interpolation, border, "TL")
     args = [t.contiguous() for t in (padded, sy, sx, xt, yt)]
-    lib = _load_library(K1)
+    fn = cuda_build.entry(_SOURCES[K1], "s360_fused_window_sample", _SAMPLE_ARGTYPES)
     L, C, Hp, Wp = padded.shape
     T, _, P = xt.shape
     out = torch.empty((T, L, C, P), dtype=torch.float32, device=padded.device)
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.s360_fused_window_sample(
-            *[a.data_ptr() for a in args], out.data_ptr(),
-            T, L, C, Hp, Wp, P, bh, bw if base_bw is None else base_bw,
-            pad_y, pad_x, n_y, n_x,
-            int(interpolation == "bicubic"), int(border == "clamp"), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_window_sample launch failed: CUDA error {err}")
-    _count(K1, site)
+    cuda_build.launch(K1, site, fn, [*args, out], [
+        T, L, C, Hp, Wp, P, bh, bw if base_bw is None else base_bw,
+        pad_y, pad_x, n_y, n_x, int(interpolation == "bicubic"), int(border == "clamp"),
+    ], padded.device)
     _record(K1, site, args, kw, out)
     return out
 
@@ -349,7 +319,7 @@ def fused_window_sample_folded(
     (T, L, C, P). With ``offsets`` ((oy, ox), ...), at most
     :data:`MAX_OFFSETS`, each within the margins ``off_my`` / ``off_mx``,
     the window is ``bh x bw`` and the result is (T, L, O, C, P).
-    ``site`` labels the caller in ``LAUNCHES``."""
+    ``site`` labels the caller in ``cuda_build.LAUNCHES``."""
     kw = dict(
         bh=bh, bw=bw, pad_y=pad_y, pad_x=pad_x, n_y=n_y, n_x=n_x,
         interpolation=interpolation, border=border,
@@ -367,7 +337,7 @@ def fused_window_sample_folded(
     _check_folded(offsets, interpolation, off_my, off_mx, bh, wx)
     kernel = K2 if offsets is None else K3
     args = [t.contiguous() for t in (padded, sy, sx, xt, yt)]
-    lib = _load_library(kernel)
+    fn = cuda_build.entry(_SOURCES[kernel], "s360_fused_window_folded", _FOLDED_ARGTYPES)
     L, C, Hp, Wp = padded.shape
     T, _, P = xt.shape
     offs = kw["offsets"] or ((0, 0),)
@@ -375,16 +345,9 @@ def fused_window_sample_folded(
     off_yx = (ctypes.c_int * (2 * O))(*[v for o in offs for v in o])
     shape = (T, L, C, P) if offsets is None else (T, L, O, C, P)
     out = torch.empty(shape, dtype=torch.float32, device=padded.device)
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.s360_fused_window_folded(
-            *[a.data_ptr() for a in args], out.data_ptr(),
-            T, L, C, Hp, Wp, P, bh, wx, off_my, off_mx, pad_y, pad_x,
-            n_y, n_x, int(interpolation == "bicubic"),
-            int(border == "clamp"), O, off_yx, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    _count(kernel, site)
+    cuda_build.launch(kernel, site, fn, [*args, out], [
+        T, L, C, Hp, Wp, P, bh, wx, off_my, off_mx, pad_y, pad_x,
+        n_y, n_x, int(interpolation == "bicubic"), int(border == "clamp"), O, off_yx,
+    ], padded.device)
     _record(kernel, site, args, kw, out)
     return out

@@ -449,12 +449,13 @@ def test_stage_breakdown_selects_stages_and_counts_launches(monkeypatch):
 
     import torch
 
+    from surround360_tpu_torch import cuda_build
     from surround360_tpu_torch.geometry.rig import make_ring_rig as port_rig
     from surround360_tpu_torch.ops import fused_window as fw
     from surround360_tpu_torch.render.panorama import build_render_context, render_frame
     from surround360_tpu_torch.utils import tracing
 
-    monkeypatch.setattr(fw, "LAUNCHES", collections.Counter())
+    monkeypatch.setattr(cuda_build, "LAUNCHES", collections.Counter())
     rig = port_rig().rescaled(0.03125)
     ctx = build_render_context(rig, RenderConfig(**dict(KW, side_flow_alg="pixflow_tpu",
                                                         enable_top=False,
@@ -463,7 +464,7 @@ def test_stage_breakdown_selects_stages_and_counts_launches(monkeypatch):
     real = fw.fused_window_sample
 
     def counting(*a, site="", **k):
-        fw._count(fw.K1, site)
+        cuda_build._count(fw.K1, site)
         return real(*a, site=site, **k)
 
     monkeypatch.setattr("surround360_tpu_torch.ops.remap.fused_window_sample", counting)
@@ -475,7 +476,7 @@ def test_stage_breakdown_selects_stages_and_counts_launches(monkeypatch):
     assert sum(rows[s]["share"] for s in TPROF.STAGES) <= 1.0
     assert rows["projection"]["launches"] == {fw.K1: 1}
     assert rows["frame"]["launches"] == {fw.K1: 1} and not rows["side_flow"]["launches"]
-    assert fw.LAUNCHES[(fw.K1, "side_projection")] == 1
+    assert cuda_build.LAUNCHES[(fw.K1, "side_projection")] == 1
     levels = [r for r in rows if r.startswith("flow.side_flow.L")]
     assert levels[-1] == "flow.side_flow.L0"
     table = TPROF.format_breakdown(rows)

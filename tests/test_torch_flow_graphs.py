@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
+from surround360_tpu_torch import cuda_build
 from surround360_tpu_torch.flow import (
     HINT_DOWN,
     HINT_LEFT,
@@ -258,13 +259,9 @@ def test_graphed_loop_keeps_k3_levels_eager(fake_graphs, monkeypatch):
     frames = _frames(2, 2, 1, 256, 256)
 
     def run():
-        fw.RECORD = {}
-        try:
+        with fw.recorded() as rec:
             out = _chain(frames, params, False, HINT_LEFT, "k3_site")
-            record = {k: (v[3], v[0][3].shape) for k, v in fw.RECORD.items()}
-        finally:
-            fw.RECORD = None
-        return out, record
+        return out, {k: (v[3], v[0][3].shape) for k, v in rec.items()}
 
     (got, got_rec), (want, want_rec) = _eager_then_graphed(fake_graphs, monkeypatch, run)
     _assert_same(got, want)
@@ -487,16 +484,12 @@ def test_card_k3_launches_and_records_equal_eager(card):
     frames = _frames(2, 3, 4, 256, 384, CUDA)
 
     def run():
-        fw.reset_launch_counts()
-        fw.RECORD = {}
-        try:
+        cuda_build.reset_launch_counts()
+        with fw.recorded() as rec:
             out = _chain(frames, params, False, HINT_LEFT, "k3_site")
             torch.cuda.synchronize()
-            record = {k: (v[3], tuple(v[0][3].shape)) for k, v in fw.RECORD.items()}
-            launches = dict(fw.LAUNCHES)
-        finally:
-            fw.RECORD = None
-        return out, record, launches
+        record = {k: (v[3], tuple(v[0][3].shape)) for k, v in rec.items()}
+        return out, record, dict(cuda_build.LAUNCHES)
 
     (got, got_rec, got_n), (want, want_rec, want_n) = card(run)
     _assert_same(got, want)

@@ -27,6 +27,7 @@ from surround360_tpu.capture import render_camera_views
 from surround360_tpu.geometry.rig import make_ring_rig as jax_rig
 from surround360_tpu.parallel import mesh as JM
 from surround360_tpu.render import panorama as JP
+from surround360_tpu_torch import cuda_build
 from surround360_tpu_torch.geometry.rig import make_ring_rig
 from surround360_tpu_torch.ops import fused_window as fw
 from surround360_tpu_torch.parallel import (
@@ -207,9 +208,9 @@ def _hammer(fn, threads=16):
 
 def test_launch_counts_survive_threads(monkeypatch):
     """The mesh's threads count launches into one Counter: no update lost."""
-    monkeypatch.setattr(fw, "LAUNCHES", type(fw.LAUNCHES)())
-    _hammer(lambda: [fw._count(fw.K1, "side_projection") for _ in range(2000)])
-    assert fw.launch_count(fw.K1) == 16 * 2000
+    monkeypatch.setattr(cuda_build, "LAUNCHES", type(cuda_build.LAUNCHES)())
+    _hammer(lambda: [cuda_build._count(fw.K1, "side_projection") for _ in range(2000)])
+    assert cuda_build.launch_count(fw.K1) == 16 * 2000
 
 
 def test_static_plan_built_once_across_threads(scene, monkeypatch):

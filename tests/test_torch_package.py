@@ -1,14 +1,17 @@
 """Package boundary of the PyTorch port: no JAX, no toolchain at import,
 and no silent fallback from the CUDA kernel to its twin."""
 
+import contextlib
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from surround360_tpu_torch import cuda_build
 from surround360_tpu_torch.ops import fused_window as fw
 
 SLICE_MODULES = [
@@ -108,9 +111,8 @@ def test_port_imports_no_jax():
         "or m == 'surround360_tpu')\n"
         "print('LEAKED', bad)\n"
         "import surround360_tpu_torch.native as native\n"
-        "import surround360_tpu_torch.ops.fused_window as fw\n"
-        "import surround360_tpu_torch.benchmarks.probe_common as pc\n"
-        "assert native._lib is None and not fw._LIBS and not pc._LIBS\n"
+        "import surround360_tpu_torch.cuda_build as cuda_build\n"
+        "assert native._lib is None and not cuda_build._LIBS\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _run(code)
@@ -122,9 +124,10 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
     imports (the toolchain is only looked up when a kernel launches)."""
     code = (
         "import sys\n"
-        "import surround360_tpu_torch.ops.fused_window as fw\n"
+        "import surround360_tpu_torch.ops.fused_window\n"
+        "import surround360_tpu_torch.cuda_build as cuda_build\n"
         "assert 'triton' not in sys.modules\n"
-        "assert not fw._LIBS\n"
+        "assert not cuda_build._LIBS\n"
     )
     proc = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert proc.returncode == 0, proc.stderr
@@ -233,10 +236,45 @@ def _small_folded_inputs():
     return arrays, dict(kw, interpolation="bilinear", border="clamp")
 
 
-def _without_toolchain(monkeypatch, tmp_path):
-    from surround360_tpu_torch import cuda_build
+# every hand-kernel wrapper: K1, K2, K3, K4 at its three sites, K5
+HAND_KERNELS = ["K1", "K2", "K3", "K4-variant", "K4-dyn", "K4-dma", "K5"]
 
-    monkeypatch.setattr(fw, "_LIBS", {})
+
+def _hand_kernel_calls():
+    """One call of each wrapper of :data:`HAND_KERNELS` on small CPU
+    inputs: {case: (call, arguments)}."""
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    arrays, kw = _small_inputs()
+    folded, fkw = _small_folded_inputs()
+    k3 = dict(offsets=((0, 0), (0, 2), (-2, 0)), off_my=2, off_mx=2)
+    calls = {
+        "K1": (lambda *a: fw.fused_window_sample(*a, **kw, site="wide"), arrays),
+        "K2": (lambda *a: fw.fused_window_sample_folded(*a, **fkw), folded),
+        "K3": (lambda *a: fw.fused_window_sample_folded(*a, **fkw, **k3), folded),
+    }
+    rng = np.random.default_rng(0)
+    for case, name in (("K4-variant", "dots_x5"), ("K4-dyn", "lead8_unrolled"),
+                       ("K4-dma", "tent_dots_dyn_dma_x5")):
+        calls[case] = (lambda *a, name=name: KS.step_cost(name, *a),
+                       KS.make_inputs(rng, name, 2, "cpu"))
+    calls["K5"] = (lambda *a: KB.body_cost("full_dma", *a),
+                   KB.make_inputs(rng, "full_dma", 2, "cpu"))
+    return calls
+
+
+def _fake_cuda(args):
+    return [None if a is None else a.as_subclass(_FakeCudaTensor) for a in args]
+
+
+def _without_toolchain(monkeypatch, tmp_path):
+    """No nvcc, no built library, and every twin raising: a wrapper on a
+    CUDA tensor can only launch its kernel or raise."""
+    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
+    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
+
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -244,43 +282,32 @@ def _without_toolchain(monkeypatch, tmp_path):
     def no_twin(*a, **k):
         raise AssertionError("fell back to the plain twin")
 
-    for name in ("fused_window_sample_reference",
-                 "fused_window_sample_folded_reference", "window_gather"):
-        monkeypatch.setattr(fw, name, no_twin)
+    for mod, names in ((fw, ("fused_window_sample_reference",
+                             "fused_window_sample_folded_reference", "window_gather")),
+                       (KS, ("step_cost_plain", "_plain_chunk")),
+                       (KB, ("body_cost_plain", "_plain_chunk"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, no_twin)
 
 
-def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
-    """A CUDA tensor must launch the kernel or raise: without nvcc and
-    without a built library the wrapper raises, and the twin never runs."""
+@pytest.mark.parametrize("case", HAND_KERNELS)
+def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, case):
+    """A CUDA tensor must launch the hand kernel or raise: without nvcc and
+    without a built library each wrapper raises, its twin never runs, and
+    no launch is counted."""
     _without_toolchain(monkeypatch, tmp_path)
-    arrays, kw = _small_inputs()
-    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
-    launches = dict(fw.LAUNCHES)
+    call, args = _hand_kernel_calls()[case]
+    launches = dict(cuda_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        fw.fused_window_sample(*fake, **kw)
-    assert dict(fw.LAUNCHES) == launches
+        call(*_fake_cuda(args))
+    assert dict(cuda_build.LAUNCHES) == launches
 
 
-@pytest.mark.parametrize("offsets", [None, ((0, 0), (0, 2), (-2, 0))], ids=["K2", "K3"])
-def test_folded_cuda_tensor_without_library_raises(monkeypatch, tmp_path, offsets):
-    """The same for the lead-folded wrapper (K2 and K3)."""
-    _without_toolchain(monkeypatch, tmp_path)
-    arrays, kw = _small_folded_inputs()
-    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
-    launches = dict(fw.LAUNCHES)
-    margins = dict(off_my=2, off_mx=2) if offsets else {}
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        fw.fused_window_sample_folded(*fake, **kw, offsets=offsets, **margins)
-    assert dict(fw.LAUNCHES) == launches
-
-
-def test_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path):
-    """A launch the kernel refuses (cudaErrorInvalidValue, 1: a window row
-    that a block's shared memory cannot hold) raises from the wrapper:
+@pytest.mark.parametrize("case", HAND_KERNELS)
+def test_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path, case):
+    """A launch the card refuses (cudaErrorInvalidValue, 1: e.g. a window
+    row that a block's shared memory cannot hold) raises from each wrapper:
     no twin runs in its place and no launch is counted."""
-    import contextlib
-    import types
-
     _without_toolchain(monkeypatch, tmp_path)
     seen = []
 
@@ -288,25 +315,19 @@ def test_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path):
         seen.append(args)
         return 1  # cudaErrorInvalidValue
 
-    lib = types.SimpleNamespace(s360_fused_window_sample=refuse,
-                                s360_fused_window_folded=refuse)
-    monkeypatch.setattr(fw, "_load_library", lambda kernel=fw.K1: lib)
+    monkeypatch.setattr(cuda_build, "entry", lambda source, name, argtypes: refuse)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     real_empty = torch.empty
     monkeypatch.setattr(torch, "empty",
                         lambda *a, device=None, **k: real_empty(*a, **k))
-    arrays, kw = _small_inputs()
-    fake = [a.as_subclass(_FakeCudaTensor) for a in arrays]
-    launches = dict(fw.LAUNCHES)
+    call, args = _hand_kernel_calls()[case]
+    launches = dict(cuda_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
-        fw.fused_window_sample(*fake, **kw, site="wide")
-    folded, fkw = _small_folded_inputs()
-    fake = [a.as_subclass(_FakeCudaTensor) for a in folded]
-    with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
-        fw.fused_window_sample_folded(*fake, **fkw)
-    assert len(seen) == 2 and dict(fw.LAUNCHES) == launches
+        call(*_fake_cuda(args))
+    assert len(seen) == 1 and seen[0][-1] == 0  # the stream, last
+    assert dict(cuda_build.LAUNCHES) == launches
 
 
 def test_other_devices_raise(monkeypatch):
@@ -318,7 +339,7 @@ def test_other_devices_raise(monkeypatch):
 
 def test_cpu_tensor_uses_twin_and_counts_no_launch():
     arrays, kw = _small_inputs()
-    launches = dict(fw.LAUNCHES)
+    launches = dict(cuda_build.LAUNCHES)
     out = fw.fused_window_sample(*arrays, **kw, site="test")
     ref = fw.fused_window_sample_reference(*arrays, **kw)
     assert out.shape == (2, 1, 2, 8)
@@ -328,7 +349,29 @@ def test_cpu_tensor_uses_twin_and_counts_no_launch():
     out = fw.fused_window_sample_folded(*folded, **fkw, offsets=offs, off_my=1,
                                         off_mx=1, site="test")
     assert out.shape == (2, 1, 2, 2, 8)
-    assert dict(fw.LAUNCHES) == launches
+    assert dict(cuda_build.LAUNCHES) == launches
+
+
+def test_recorded_keeps_the_largest_call_and_restores_the_earlier_record():
+    """recorded() keeps per (kernel, site, offsets) the call with the most
+    samples and the call count; a record opened inside it sees only its own
+    calls, and on its exit, by an exception too, the outer one is back."""
+    arrays, kw = _small_inputs()
+    fewer = arrays[:3] + [a[..., :4].contiguous() for a in arrays[3:]]
+    with fw.recorded() as outer:
+        fw.fused_window_sample(*arrays, **kw, site="a")
+        with pytest.raises(RuntimeError, match="inside"):
+            with fw.recorded() as inner:
+                fw.fused_window_sample(*arrays, **kw, site="b")
+                raise RuntimeError("inside")
+        fw.fused_window_sample(*fewer, **kw, site="a")
+    assert list(inner) == [(fw.K1, "b", None)]
+    assert list(outer) == [(fw.K1, "a", None)]
+    args, got_kw, out, calls = outer[(fw.K1, "a", None)]
+    assert calls == 2 and args[3].shape == (2, 1, 8) and out.shape == (2, 1, 2, 8)
+    assert got_kw == dict(kw, interpolation="bicubic", border="constant", base_bw=None)
+    fw.fused_window_sample(*arrays, **kw, site="after")
+    assert list(outer) == [(fw.K1, "a", None)] and fw._RECORD is None
 
 
 def test_wrapper_validates_inputs():
@@ -439,84 +482,8 @@ def test_folded_kernels_match_twin_on_gpu():
         assert float((got - want).abs().max()) <= 2e-5, kw
 
 
-def _probe_calls():
-    """One call of each probe kernel site (K4's three, K5) on small CPU
-    inputs: (site, wrapper, arguments)."""
-    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
-    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
-
-    rng = np.random.default_rng(0)
-    for name in ("dots_x5", "lead8_unrolled", "tent_dots_dyn_dma_x5"):
-        yield KS.VARIANTS[name][0], lambda *a, name=name: KS.step_cost(name, *a), \
-            KS.make_inputs(rng, name, 2, "cpu")
-    yield KB.SITE, lambda *a: KB.body_cost("full_dma", *a), \
-        KB.make_inputs(rng, "full_dma", 2, "cpu")
-
-
-def _probes_without_toolchain(monkeypatch, tmp_path):
-    from surround360_tpu_torch.benchmarks import kernel_body_cost as KB
-    from surround360_tpu_torch.benchmarks import kernel_step_cost as KS
-    from surround360_tpu_torch.benchmarks import probe_common as pc
-
-    _without_toolchain(monkeypatch, tmp_path)
-    monkeypatch.setattr(pc, "_LIBS", {})
-
-    def no_twin(*a, **k):
-        raise AssertionError("fell back to the plain twin")
-
-    for mod, names in ((KS, ("step_cost_plain", "_plain_chunk")),
-                       (KB, ("body_cost_plain", "_plain_chunk"))):
-        for name in names:
-            monkeypatch.setattr(mod, name, no_twin)
-    return pc
-
-
-def _fake_cuda(args):
-    return [None if a is None else a.as_subclass(_FakeCudaTensor) for a in args]
-
-
-def test_probe_wrappers_raise_without_library(monkeypatch, tmp_path):
-    """K4 and K5 on a CUDA tensor without nvcc or a built library: the
-    wrapper raises and the twin never runs; no launch is counted."""
-    pc = _probes_without_toolchain(monkeypatch, tmp_path)
-    launches = dict(pc.LAUNCHES)
-    sites = []
-    for site, call, args in _probe_calls():
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            call(*_fake_cuda(args))
-        sites.append(site)
-    assert len(set(sites)) == 4 and dict(pc.LAUNCHES) == launches
-
-
-def test_probe_launch_error_raises_and_never_takes_the_twin(monkeypatch, tmp_path):
-    """A launch the card refuses raises from each probe wrapper; no twin
-    runs in its place and no launch is counted."""
-    import contextlib
-    import types
-
-    pc = _probes_without_toolchain(monkeypatch, tmp_path)
-    seen = []
-
-    def refuse(*args):
-        seen.append(args)
-        return 1  # cudaErrorInvalidValue
-
-    monkeypatch.setattr(pc, "load_library", lambda *a: refuse)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
-    real_empty = torch.empty
-    monkeypatch.setattr(torch, "empty",
-                        lambda *a, device=None, **k: real_empty(*a, **k))
-    launches = dict(pc.LAUNCHES)
-    for _, call, args in _probe_calls():
-        with pytest.raises(RuntimeError, match="launch failed: CUDA error 1"):
-            call(*_fake_cuda(args))
-    assert len(seen) == 4 and dict(pc.LAUNCHES) == launches
-
-
 def test_probe_wrappers_raise_on_other_devices():
-    for _, call, args in _probe_calls():
+    for call, args in _hand_kernel_calls().values():
         with pytest.raises(ValueError, match="unsupported device"):
             call(*[None if a is None else a.to("meta") for a in args])
 

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from surround360_tpu_torch import cuda_build  # noqa: E402
 from surround360_tpu_torch.benchmarks import kernel_body_cost as KB  # noqa: E402
 from surround360_tpu_torch.benchmarks import kernel_step_cost as KS  # noqa: E402
 from surround360_tpu_torch.benchmarks import probe_common as pc  # noqa: E402
@@ -234,14 +235,14 @@ def test_k4_roll_is_jnp_roll():
 
 def test_wrappers_take_the_twin_on_cpu_and_count_no_launch():
     rng = np.random.default_rng(1)
-    launches = dict(pc.LAUNCHES)
+    launches = dict(cuda_build.LAUNCHES)
     for name in KS.VARIANTS:
         args = KS.make_inputs(rng, name, 2, "cpu")
         assert torch.equal(KS.step_cost(name, *args), KS.step_cost_plain(name, *args))
     for name in KB.VARIANTS:
         args = KB.make_inputs(rng, name, 3, "cpu")
         assert torch.equal(KB.body_cost(name, *args), KB.body_cost_plain(name, *args))
-    assert dict(pc.LAUNCHES) == launches
+    assert dict(cuda_build.LAUNCHES) == launches
 
 
 def test_twins_chunk_long_grids_like_short_ones(monkeypatch):
@@ -401,8 +402,6 @@ def test_smoke_tensor_core_bounds_are_the_hand_counts():
 def test_kernel_resources_read_ptxas(monkeypatch, tmp_path):
     """cuda_build.kernel_resources: registers and spill bytes per kernel
     from ptxas's -v report kept beside a build."""
-    from surround360_tpu_torch import cuda_build
-
     so = tmp_path / "libk.so"
     (tmp_path / "libk.so.ptxas.txt").write_text(
         "ptxas info    : 0 bytes gmem\n"

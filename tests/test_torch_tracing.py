@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from surround360_tpu_torch import cuda_build
 from surround360_tpu_torch.flow import compute_flow, make_flow_params
 from surround360_tpu_torch.geometry.rig import make_ring_rig
 from surround360_tpu_torch.isp import pipeline as isp_pipeline
@@ -172,15 +173,15 @@ def test_threads_keep_separate_parent_stacks():
 
 
 def test_launches_count_in_the_innermost_span(scene, monkeypatch):
-    """The wrappers' counter adds ``launches.<kernel>`` to the innermost
-    span (here through the stub that counts, since the CPU twins launch
-    nothing), and LAUNCHES as before."""
+    """The launch account (``cuda_build``) adds ``launches.<kernel>`` to
+    the innermost span (here through the stub that counts, since the CPU
+    twins launch nothing), and to LAUNCHES as before."""
     ctx, side, top, bottom = scene
-    monkeypatch.setattr(fw, "LAUNCHES", collections.Counter())
+    monkeypatch.setattr(cuda_build, "LAUNCHES", collections.Counter())
     real = fw.fused_window_sample
 
     def counting(*a, site="", **k):
-        fw._count(fw.K1, site)
+        cuda_build._count(fw.K1, site)
         return real(*a, site=site, **k)
 
     monkeypatch.setattr("surround360_tpu_torch.ops.remap.fused_window_sample", counting)
@@ -198,10 +199,10 @@ def test_launches_count_in_the_innermost_span(scene, monkeypatch):
     both = {key: 3, "flow.graph.eager": len(levels)}
     t = tracing.totals()
     assert t["outer"]["counts"] == t["frame"]["counts"] == both
-    assert fw.LAUNCHES[(fw.K1, "side_projection")] == 1
-    assert fw.LAUNCHES[(fw.K1, "fisheye_strip")] == 2
-    fw._count(fw.K1, "off")  # tracing off: LAUNCHES only
-    assert fw.LAUNCHES[(fw.K1, "off")] == 1
+    assert cuda_build.LAUNCHES[(fw.K1, "side_projection")] == 1
+    assert cuda_build.LAUNCHES[(fw.K1, "fisheye_strip")] == 2
+    cuda_build._count(fw.K1, "off")  # tracing off: LAUNCHES only
+    assert cuda_build.LAUNCHES[(fw.K1, "off")] == 1
     assert tracing.totals()["frame"]["counts"] == both
 
 
