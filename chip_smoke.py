@@ -30,9 +30,14 @@ the run after phase 13, so that the measurements still print). Phases 14,
 4. main path: the 6k quality preset (6300x3072 per eye from 2048 px
    cameras, 6144x6144 final), pixflow_tpu flows, both poles merged,
    sharpening and the final resize; frame 0, then frame 1 chained through
-   frame 0's temporal state. Requires the output shape, finite values and
-   K1 launches at its four call sites and none of K2; prints seconds,
-   peak memory and every kernel's launches.
+   frame 0's temporal state, with the per-call record open (phase 5's
+   calls; the flow's levels then run eagerly). Then the same chain for 3
+   frames with no record open, as users run it: the flow's pyramid levels
+   run as CUDA graphs (frames 0-1 capture, frame 2 replays; no level
+   eager), and the replayed frame launches per (kernel, site) what the
+   recorded frame 1 launched. Requires the output shape, finite values
+   and K1 launches at its four call sites and none of K2; prints seconds
+   a frame, peak memory and every kernel's launches of the graphed run.
 5. main-path K1 vs twin: the recorded call of each call site (the one
    with the most samples), rerun through the plain PyTorch twin; max-abs
    <= 2e-5. Per call: launches per frame, kernel ms with a warm L2 and
@@ -44,14 +49,20 @@ the run after phase 13, so that the measurements still print). Phases 14,
 6. quality: one more frame at the same geometry without sharpening or
    final resize; full-sphere PSNR per eye against the analytic reference
    must reach 40 dB.
-7. cli: the simulator's views written as 16-bit PNGs (frame 1 hard-links
-   frame 0), then the video CLI (render_video.main) at the 6k preset with
-   pixflow_tpu_offsets on the ring and the poles, saving its state:
-   requires K3 launches at both flow sites, none of K2, and finite
-   6144x6144 frames; prints seconds per frame, the loop's host stages
-   (PNG decode and encode, render, fetch), peak memory and every
-   kernel's launches; then frame 1 again, resumed from frame 0's state
-   pickle into another directory, within 1/255 of the chained frame 1.
+7. cli: the simulator's views written as 16-bit PNGs (frames 1 and 2
+   hard-link frame 0), then the video CLI (render_video.main) at the 6k
+   preset with pixflow_tpu_offsets on the ring and the poles, frames 0-1
+   with the per-call record open (phase 8's calls; the levels run
+   eagerly), saving its state: requires none of K2 and finite 6144x6144
+   frames; prints seconds per frame, the loop's host stages (PNG decode
+   and encode, render, fetch) and peak memory. Then frames 0-2 with no
+   record open: every flow level graphed, K3's too (frames 0-1 capture,
+   frame 2 replays); requires K3 launches at both flow sites in the
+   replayed frame, its launches per (kernel, site) equal to the recorded
+   frame 1's, and frames 0-1 equal to the recorded ones (max-abs 0);
+   prints its seconds per frame and every kernel's launches. Last, frame
+   1 again, resumed from frame 0's state pickle into another directory,
+   within 1/255 of the chained frame 1.
 8. flow sites: at each flow site, for each offset set (d = 8, 4, 2, 1),
    the recorded K3 call with the most samples (the finest pyramid level
    that ranks with that set) against the twin (max-abs <= 2e-5, and the
@@ -73,10 +84,13 @@ the run after phase 13, so that the measurements still print). Phases 14,
    cubemap and pixflow_tpu_offsets on the ring, the poles and the pole
    removal; two chained frames, then frame 1 resumed from frame 0's
    pickle: equirect and cubemap equal to the chained frame (max-abs 0).
-   Requires the cubemap's shape, K1 launches at the cubemap's two
-   remaps and the pole-removal warp, K3 launches at the pole-removal
-   flow, and (pole removal rerun on the same PNGs) alpha refilled under
-   the primary mask and the mask's interior near the unpainted view.
+   The two chained frames run with the per-call record open (phase 12's
+   calls), then again with none: no flow level eager there. Requires,
+   of the run with no record, the cubemap's shape, K1 launches at the
+   cubemap's two remaps and the pole-removal warp, K3 launches at the
+   pole-removal flow, and (pole removal rerun on the same PNGs) alpha
+   refilled under the primary mask and the mask's interior near the
+   unpainted view.
 12. new sites: the recorded calls of phase 11's new kernel sites, as
    phases 5 and 8.
 13. debug and profile: one frame at the preview preset with
@@ -195,6 +209,7 @@ name and power limit, and last
 from __future__ import annotations
 
 import ast
+import collections
 import contextlib
 import dataclasses
 import io
@@ -220,6 +235,7 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (NVIDIA data shee
 FLUSH_BYTES = 128 * 2**20  # written before a cold call: > the 50 MB L2
 SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of timed calls
 FRAMES = 2  # frames of each product path (phase 4 and phase 7)
+GRAPHED_FRAMES = 3  # with no record open: frames 0-1 capture the flow's levels, 2 replays
 PSNR_MIN = 40.0  # the reference package's preset-quality target
 PRESET = "6k"
 K1_SITES = ("side_projection", "novel_view", "fisheye_strip", "pole_warp")
@@ -704,39 +720,105 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def _frames_counted(module):
+    """While open, each ``render_frame`` call made through ``module``
+    appends to the yielded list what the launch account gained since the
+    last frame, per (kernel, site), and the counters of the tracer's
+    ``flow.level`` spans recorded since (captures, replays, eager
+    levels)."""
+    from surround360_tpu_torch import cuda_build
+    from surround360_tpu_torch.utils import tracing
+
+    frames, inner = [], module.render_frame
+    seen = [collections.Counter(cuda_build.LAUNCHES), len(tracing.session())]
+
+    def counted(*args, **kw):
+        out = inner(*args, **kw)
+        now, spans = collections.Counter(cuda_build.LAUNCHES), tracing.session()
+        frames.append((now - seen[0], _graph_counts(spans[seen[1]:])))
+        seen[:] = now, len(spans)
+        return out
+
+    module.render_frame = counted
+    try:
+        yield frames
+    finally:
+        module.render_frame = inner
+
+
+def _graph_counts(spans):
+    """The ``flow.graph.*`` counters (captures, replays, eager levels) of
+    the tracer's ``flow.level`` spans among ``spans``, summed."""
+    levels = collections.Counter()
+    for sp in spans:
+        if sp.name == "flow.level":
+            levels.update({k: n for k, n in sp.counts.items() if k.startswith("flow.graph.")})
+    return levels
+
+
+def _check_graphed(phase, graphed, recorded=None):
+    """``graphed``, the frames of a run with no record open
+    (:func:`_frames_counted`, under ``tracing.recording()``), took the
+    flow's level graphs: no level ran eagerly. With ``recorded``, the
+    frames of a run with the record open, the last graphed frame replayed
+    every level and captured none, and launched per (kernel, site) what
+    the last recorded frame launched eagerly. Returns the graph counters
+    summed over the frames."""
+    levels = sum((lv for _, lv in graphed), collections.Counter())
+    if levels["flow.graph.eager"] or not levels:
+        raise AssertionError(f"[{phase}] flow levels not graphed: {dict(levels)}")
+    if recorded is not None:
+        launched, last = graphed[-1]
+        if set(last) != {"flow.graph.replay"} or launched != recorded[-1][0]:
+            raise AssertionError(
+                f"[{phase}] the last frame's levels {dict(last)}; it launched "
+                f"{dict(launched)}, the recorded frame {dict(recorded[-1][0])}")
+    return dict(levels)
+
+
 def phase_main_path(rig, preset, device):
-    """Two chained frames through the user entry points; returns the
-    context, inputs, views, launches per kernel, the recorded calls and
-    times."""
+    """Two chained frames through the user entry points with the per-call
+    record open, then three with none (the flow's levels graphed); returns
+    the context, inputs, views, the graphed run's launches per kernel, the
+    recorded calls and the graphed run's seconds a frame."""
     import torch
 
     from surround360_tpu_torch.benchmarks.preset_table import preset_config
     from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
-    from surround360_tpu_torch.render.panorama import (
-        build_render_context,
-        render_frame,
-    )
+    from surround360_tpu_torch.render import panorama
+    from surround360_tpu_torch.utils import tracing
 
     t0 = time.perf_counter()
     inputs, views = _render_inputs(rig, device)
     t1 = time.perf_counter()
-    ctx = build_render_context(rig, preset_config(preset))
+    ctx = panorama.build_render_context(rig, preset_config(preset))
     log(f"[4 main] simulator views {t1 - t0:.1f} s, build_render_context "
         f"{time.perf_counter() - t1:.1f} s (strip {ctx.strip_h}x"
         f"{ctx.strip_w}, poles {ctx.top_h} rows)")
+
+    def chain(n, times):
+        state = None
+        for frame in range(n):
+            t0 = time.perf_counter()
+            out, state = panorama.render_frame(ctx, *inputs, state=state,
+                                               use_temporal=frame > 0)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        return out
+
+    reset_launch_counts()
+    with fw.recorded() as record, _frames_counted(panorama) as recorded:
+        chain(FRAMES, [])
+    # as users run it: no record open, so the flow's levels run as graphs
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     times = []
-    state = None
     reset_launch_counts()
-    with fw.recorded() as record:
-        for frame in range(FRAMES):
-            t0 = time.perf_counter()
-            out, state = render_frame(ctx, *inputs, state=state,
-                                      use_temporal=frame > 0)
-            _sync(device)
-            times.append(time.perf_counter() - t0)
+    with tracing.recording(), _frames_counted(panorama) as graphed:
+        out = chain(GRAPHED_FRAMES, times)
+    levels = _check_graphed("4 main", graphed, recorded)
     sites = {s: launch_count(fw.K1, s) for s in K1_SITES}
     launches = {k: launch_count(k) for k in fw.KERNELS}
     eqr = out["equirect"]
@@ -754,9 +836,9 @@ def phase_main_path(rig, preset, device):
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
     log(f"[4 main] {preset} {cfg.eqr_width}x{cfg.eqr_height}/eye -> "
-        f"{tuple(eqr.shape)}: frame 0 {times[0]:.3f} s, frame 1 (temporal) "
-        f"{times[1]:.3f} s, peak {peak:.2f} GiB, K1 sites {sites}, launches "
-        f"{launches}")
+        f"{tuple(eqr.shape)}, no record open: frame 0 {times[0]:.3f} s, frame 1 "
+        f"(temporal) {times[1]:.3f} s, frame 2 (replayed) {times[2]:.3f} s, peak "
+        f"{peak:.2f} GiB, flow levels {levels}, K1 sites {sites}, launches {launches}")
     return ctx, inputs, views, launches, record, times
 
 
@@ -842,8 +924,8 @@ def phase_quality(ctx, inputs, device, flow_alg, phase, expect=None):
 
 
 def _write_footage(rig, views, imgs):
-    """Frame 0 as 16-bit PNGs with the port's writer; frame 1 hard-links
-    frame 0."""
+    """Frame 0 as 16-bit PNGs with the port's writer; frames 1 and 2
+    hard-link frame 0."""
     from surround360_tpu_torch.cli.common import write_image
     from surround360_tpu_torch.geometry.rig import save_rig
 
@@ -855,7 +937,8 @@ def _write_footage(rig, views, imgs):
         d = os.path.join(imgs, rig.ids[i])
         os.makedirs(d, exist_ok=True)
         write_image(os.path.join(d, "000000.png"), views[i], bit_depth=16)
-        os.link(os.path.join(d, "000000.png"), os.path.join(d, "000001.png"))
+        for f in (1, 2):
+            os.link(os.path.join(d, "000000.png"), os.path.join(d, f"{f:06d}.png"))
 
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(one, range(len(rig.ids))))
@@ -882,20 +965,24 @@ def _video(argv):
 
 
 def phase_cli(rig, views):
-    """The video CLI at 6k with pixflow_tpu_offsets, chained and resumed.
-    Returns the launches per kernel and the recorded K3 calls."""
+    """The video CLI at 6k with pixflow_tpu_offsets: chained with the
+    per-call record open, chained with none (the flow's levels graphed)
+    and resumed. Returns the graphed run's launches per kernel and the
+    recorded K3 calls."""
     import torch
 
+    from surround360_tpu_torch.cli import render_video
     from surround360_tpu_torch.cli.common import read_image_rgba
     from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
     from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.utils import tracing
 
     shutil.rmtree(WORK, ignore_errors=True)
     imgs = os.path.join(WORK, "imgs")
     t0 = time.perf_counter()
     rig_path = _write_footage(rig, views, imgs)
-    log(f"[7 cli] {len(rig.ids)} cameras x 2 frames as 16-bit PNGs in "
+    log(f"[7 cli] {len(rig.ids)} cameras x {GRAPHED_FRAMES} frames as 16-bit PNGs in "
         f"{time.perf_counter() - t0:.1f} s")
     common = ["--rig_json_file", rig_path, "--imgs_dir", imgs, "--quality",
               PRESET, "--enable_top", "--enable_bottom",
@@ -903,15 +990,23 @@ def phase_cli(rig, views):
               "--polar_flow_alg", "pixflow_tpu_offsets"]
     chained = os.path.join(WORK, "chained")
     states = os.path.join(WORK, "state")
-    reset_launch_counts()
-    with fw.recorded() as record:
+    with fw.recorded() as record, _frames_counted(render_video) as recorded:
         state, wall, stages, peak = _video(
             common + ["--output_dir", chained, "--start_frame", "0",
                       "--end_frame", "1", "--save_state_dir", states])
+    # as users run it: no record open, so every flow level runs as a graph
+    reset_launch_counts()
+    with tracing.recording(), _frames_counted(render_video) as graphed:
+        _, g_wall, g_stages, g_peak = _video(
+            common + ["--output_dir", os.path.join(WORK, "graphed"), "--start_frame", "0",
+                      "--end_frame", str(GRAPHED_FRAMES - 1)])
+    levels = _check_graphed("7 cli", graphed, recorded)
     sites = {s: launch_count(fw.K3, s) for s in FLOW_SITES}
+    replayed = {s: graphed[-1][0][(fw.K3, s)] for s in FLOW_SITES}
     launches = {k: launch_count(k) for k in fw.KERNELS}
-    if any(n == 0 for n in sites.values()):
-        raise AssertionError(f"K3 not launched at every flow site: {sites}")
+    if not all(replayed.values()):
+        raise AssertionError(f"K3 not launched at every flow site of the replayed "
+                             f"frame: {replayed}")
     if launches[fw.K2]:
         raise AssertionError(f"K2 launched on the product path: {launches}")
     if not all(bool(torch.isfinite(v).all()) for v in state.values()):
@@ -922,12 +1017,20 @@ def phase_cli(rig, views):
     for img in frames:
         if img.shape != (4, fin_h, fin_w) or not np.isfinite(img).all():
             raise AssertionError(f"bad output frame {img.shape}")
-    loop_s = stages["loop"][1]
-    log(f"[7 cli] render_video {PRESET} pixflow_tpu_offsets, 2 frames: "
+    graphed_err = max(float(np.abs(read_image_rgba(os.path.join(
+        WORK, "graphed", "eqr_frames", f"eqr_{f:06d}.png")) - frames[f]).max()) for f in (0, 1))
+    if graphed_err:
+        raise AssertionError(f"graphed frames 0-1 differ from the recorded ones by {graphed_err}")
+    loop_s, g_loop_s = stages["loop"][1], g_stages["loop"][1]
+    log(f"[7 cli] render_video {PRESET} pixflow_tpu_offsets, 2 frames recorded: "
         f"{loop_s / 2:.3f} s/frame ({loop_s:.3f} s loop, {wall:.1f} s with "
-        f"context), peak {peak:.2f} GiB, K3 sites {sites}, launches {launches}")
+        f"context), peak {peak:.2f} GiB")
     log("[7 cli] loop stages, seconds summed (entries): " + ", ".join(
         f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items()))
+    log(f"[7 cli] {GRAPHED_FRAMES} frames with no record open: {g_loop_s / GRAPHED_FRAMES:.3f} "
+        f"s/frame ({g_loop_s:.3f} s loop, {g_wall:.1f} s with context), peak {g_peak:.2f} "
+        f"GiB, flow levels {levels}, K3 sites {sites} (the replayed frame {replayed}), "
+        f"launches {launches}; frames 0-1 equal to the recorded run's (max-abs 0)")
 
     resumed = os.path.join(WORK, "resumed")
     _, wall, _, _ = _video(
@@ -1185,14 +1288,17 @@ def _pole_quality(root, rig, painted, views, device):
 def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
                       device_name="cuda"):
     """The product's video CLI on the unpacked PNGs: pole removal, cubemap,
-    chained and resumed. Returns the launches per kernel and the recorded
-    calls."""
+    chained with the per-call record open, chained with none (the flow's
+    levels graphed) and resumed. Returns the graphed run's launches per
+    kernel and the recorded calls."""
     import torch
 
+    from surround360_tpu_torch.cli import render_video
     from surround360_tpu_torch.cli.common import read_image_rgba
     from surround360_tpu_torch.cli.render_video import QUALITY_PRESETS
     from surround360_tpu_torch.cuda_build import launch_count, reset_launch_counts
     from surround360_tpu_torch.ops import fused_window as fw
+    from surround360_tpu_torch.utils import tracing
 
     common = ["--rig_json_file", os.path.join(root, "rig.json"), "--imgs_dir",
               os.path.join(root, "raw"), "--quality", preset, "--enable_top",
@@ -1202,11 +1308,17 @@ def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
               "--side_flow_alg", FLOW_ALG, "--polar_flow_alg", FLOW_ALG,
               "--poleremoval_flow_alg", FLOW_ALG, "--device", device_name]
     chained, states = os.path.join(root, "chained"), os.path.join(root, "state")
-    reset_launch_counts()
     with fw.recorded() as record:
         state, wall, stages, peak = _video(
             common + ["--output_dir", chained, "--start_frame", "0", "--end_frame",
                       str(FRAMES - 1), "--save_state_dir", states])
+    # as users run it: no record open, so every flow level runs as a graph
+    reset_launch_counts()
+    with tracing.recording(), _frames_counted(render_video) as graphed:
+        _, g_wall, g_stages, _ = _video(
+            common + ["--output_dir", os.path.join(root, "graphed"), "--start_frame", "0",
+                      "--end_frame", str(FRAMES - 1)])
+    levels = _check_graphed("11 product cli", graphed) if device_name == "cuda" else {}
     k1_sites = {s: launch_count(fw.K1, s) for s in K1_SITES + K1_PRODUCT_SITES}
     k3_sites = {s: launch_count(fw.K3, s) for s in FLOW_SITES + (POLE_REMOVAL_FLOW,)}
     launches = {k: launch_count(k) for k in fw.KERNELS}
@@ -1228,14 +1340,22 @@ def phase_product_cli(rig, root, painted, views, preset=PRESET, cube=CUBE,
             last[kind] = read(chained, kind, f)
             if last[kind].shape != shape or not np.isfinite(last[kind]).all():
                 raise AssertionError(f"bad {kind} frame {f}: {last[kind].shape} != {shape}")
-    loop_s = stages["loop"][1]
+    errs = {f"{kind} {f}": float(np.abs(read(os.path.join(root, "graphed"), kind, f)
+                                        - read(chained, kind, f)).max())
+            for kind in want for f in range(FRAMES)}
+    if any(errs.values()):
+        raise AssertionError(f"graphed frames differ from the recorded ones: {errs}")
+    loop_s, g_loop_s = stages["loop"][1], g_stages["loop"][1]
     log(f"[11 product cli] render_video {preset} {FLOW_ALG} with pole removal and a "
-        f"{cube} px cubemap, {FRAMES} frames: {loop_s / FRAMES:.3f} s/frame "
+        f"{cube} px cubemap, {FRAMES} frames recorded: {loop_s / FRAMES:.3f} s/frame "
         f"({loop_s:.3f} s loop, {wall:.1f} s with context), peak {peak:.2f} GiB, "
-        f"equirect {want['eqr'][1:]}, cubemap {want['cube'][1:]}, K1 sites {k1_sites}, "
-        f"K3 sites {k3_sites}, launches {launches}")
+        f"equirect {want['eqr'][1:]}, cubemap {want['cube'][1:]}")
     log("[11 product cli] loop stages, seconds summed (entries): " + ", ".join(
         f"{name} {secs:.3f} ({n})" for name, (n, secs) in stages.items()))
+    log(f"[11 product cli] {FRAMES} frames with no record open: {g_loop_s / FRAMES:.3f} "
+        f"s/frame ({g_wall:.1f} s with context), flow levels {levels}, K1 sites "
+        f"{k1_sites}, K3 sites {k3_sites}, launches {launches}; equal to the recorded "
+        f"frames (max-abs 0)")
 
     resumed = os.path.join(root, "resumed")
     f1 = FRAMES - 1
@@ -2733,7 +2853,10 @@ def quick():
     the cubemap's two remaps of a 6300x3072 panorama into 1536 px faces,
     the pole-removal warp of a 2048x2048 image under a smooth random flow
     of a few tens of px, and the pole-removal flow of a 2048x2048 pair,
-    each recorded call against its twin and with phase 5's numbers; last
+    each recorded call against its twin and with phase 5's numbers; the
+    same flow three times with no record open, its levels graphed: the
+    capture's call launches K3 twice as often as the recorded call (the
+    warm-up, then the first replay), each replay as often; last
     the ISP of two 2048x2048 frames on the card against the CPU, and its ms
     a frame for each demosaic filter. A time that depends on the data (the
     pole-removal warp's and flow's) differs from the product's."""
@@ -2746,6 +2869,7 @@ def quick():
     from surround360_tpu_torch.ops.resize import gaussian_blur
     from surround360_tpu_torch.ops.window_sampler import sample_displaced
     from surround360_tpu_torch.render.panorama import RenderConfig, _cubemap
+    from surround360_tpu_torch.utils import tracing
 
     smi = phase_device()
     phase_build()
@@ -2793,8 +2917,27 @@ def quick():
         compute_flow(a, b, make_flow_params(FLOW_ALG), site=POLE_REMOVAL_FLOW,
                      hint=torch.tensor([HINT_DOWN], dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
+    recorded = launch_count(fw.K3)
     log(f"[sites] {FLOW_ALG} flow of a {W}x{H} pair: {time.perf_counter() - t0:.3f} "
-        f"s, K3 launches {launch_count(fw.K3)}")
+        f"s, K3 launches {recorded}")
+    # with no record open the levels run as graphs: the first call captures
+    # (its warm-up, then its first replay), the next two replay
+    graphed, times = [], []
+    with tracing.recording():
+        for _ in range(3):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            compute_flow(a, b, make_flow_params(FLOW_ALG), site=POLE_REMOVAL_FLOW,
+                         hint=torch.tensor([HINT_DOWN], dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            graphed.append(launch_count(fw.K3, POLE_REMOVAL_FLOW))
+    levels = _graph_counts(tracing.session())
+    log(f"[sites] the same flow with no record open: {', '.join(f'{t:.3f}' for t in times)} "
+        f"s, K3 launches {graphed}, flow levels {dict(levels)}")
+    if levels["flow.graph.eager"] or graphed != [2 * recorded, recorded, recorded]:
+        raise AssertionError(f"graphed pole-removal flow: K3 launches {graphed}, recorded "
+                             f"{recorded}, levels {dict(levels)}")
     d = lambda offs: max(abs(v) for o in offs for v in o)
     for key in sorted((k for k in record if k[0] == fw.K3), key=lambda k: -d(k[2])):
         _site_check("sites", key, record, record[key][3])
@@ -2875,10 +3018,12 @@ def main():
     # calls (K1: the largest per call site, phases 5 and 12; K3: the largest
     # per flow site and offset set, phases 8 and 12; K2: its forced call in
     # phase 8).
-    # launches: the product paths' runs (phase 4's render_frame, phase 7's
-    # CLI, phase 11's CLI with pole removal and a cubemap, phase 23's bench
-    # in both modes and the root entry's counterpart), counted from 0 just
-    # before each; K2 has no product caller, so 0
+    # launches: the product paths' runs with no record open, as users run
+    # them (phase 4's render_frame, phase 7's CLI and phase 11's CLI with
+    # pole removal and a cubemap, their flow levels graphed: a capture's
+    # warm-up and each replay count; phase 23's bench in both modes and the
+    # root entry's counterpart), counted from 0 just before each; K2 has no
+    # product caller, so 0
     launches = {k: render_launches[k] + cli_launches[k] + product_launches[k]
                 + bench_launches[k] for k in render_launches}
     entries = [

@@ -12,13 +12,16 @@ probes in ``benchmarks/``) launches through it.
 ``LAUNCHES`` counts the launches by (kernel, site), where the site is the
 caller's label (a probe's variant); each launch also counts as
 ``launches.<kernel>`` in the innermost span of ``utils/tracing.py`` while
-tracing is on.
+tracing is on. A launch made while a CUDA graph is being captured on the
+thread (:func:`held`) runs only when the graph is replayed: its count is
+kept with the graph and made at each replay (:func:`count_replayed`).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,7 +37,7 @@ from .utils import tracing
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "build_all", "ptxas_report",
            "kernel_resources", "hmma_counts", "entry", "launch", "LAUNCHES",
-           "launch_count", "reset_launch_counts"]
+           "launch_count", "reset_launch_counts", "held", "count_replayed"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -44,6 +47,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict = {}  # source file -> loaded ctypes library
 # guards LAUNCHES and _LIBS: frames may render on several threads
 _LOCK = threading.Lock()
+_HELD = threading.local()  # .launches: the list of held() open on this thread
 
 
 def _find_nvcc() -> str:
@@ -178,7 +182,8 @@ def entry(source: str, name: str, argtypes: list):
 def launch(kernel: str, site: str, fn, tensors, scalars, device) -> None:
     """Call the entry point ``fn`` on ``tensors``' data pointers, then
     ``scalars`` and the current stream of ``device``; raise when the launch
-    is refused, else count it (:func:`_count`). Tensors and scalars come
+    is refused, else count it (:func:`_count`; inside :func:`held`, at
+    each replay of the graph being captured). Tensors and scalars come
     apart, so that the launch path tests no argument's type (a host cost
     paid at every launch)."""
     with torch.cuda.device(device):
@@ -190,9 +195,34 @@ def launch(kernel: str, site: str, fn, tensors, scalars, device) -> None:
 
 
 def _count(kernel: str, site: str) -> None:
+    pending = getattr(_HELD, "launches", None)
+    if pending is not None:
+        pending.append((kernel, site))
+        return
     with _LOCK:
         LAUNCHES[(kernel, site)] += 1
     tracing.count("launches." + kernel)
+
+
+@contextlib.contextmanager
+def held():
+    """While open on this thread, launches are not counted: each is
+    appended as (kernel, site) to the list this yields. Open it around the
+    capture of a CUDA graph, whose launches run at its replays, and count
+    them there with :func:`count_replayed`."""
+    prev = getattr(_HELD, "launches", None)
+    _HELD.launches = launches = []
+    try:
+        yield launches
+    finally:
+        _HELD.launches = prev
+
+
+def count_replayed(launches) -> None:
+    """Count each (kernel, site) of ``launches``, a captured graph's
+    launches as :func:`held` listed them, once: at each of its replays."""
+    for kernel, site in launches:
+        _count(kernel, site)
 
 
 def reset_launch_counts() -> None:

@@ -36,7 +36,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import cuda_build
 from ..ops.filters import median_filter, median_filter_5x5_separable
+from ..ops.fused_window import record_open
 from ..ops.resize import (
     device_constant,
     gaussian_blur,
@@ -45,11 +47,7 @@ from ..ops.resize import (
     resize_bilinear,
     resize_cubic,
 )
-from ..ops.window_sampler import (
-    fused_route_plan,
-    make_window_sampler,
-    plan_windows_budgeted,
-)
+from ..ops.window_sampler import make_window_sampler, plan_windows_budgeted
 from ..utils.tracing import count, span
 
 HINT_UNKNOWN = 0
@@ -266,27 +264,6 @@ def _rank_offsets(d: int, probes) -> tuple:
         if (dy * d, dx * d) not in offs:
             offs.append((dy * d, dx * d))
     return tuple(offs)
-
-
-@lru_cache(maxsize=1024)
-def _level_uses_kernel(B: int, H: int, W: int, params: FlowParams, is_finest: bool) -> bool:
-    """Whether a pyramid level launches a hand-written kernel: an
-    offset-ranking round whose sampler takes the fused route (K3), as
-    :func:`~..ops.window_sampler.fused_route_plan` decides from shapes."""
-    if not params.offset_ranking:
-        return False
-    lv = _level_plan(B, H, W, params, is_finest)
-    if lv.use_residual:
-        return False
-    probes = _PROBES if params.use_probe_candidates else ()
-    return any(
-        fused_route_plan(
-            B, 2, (H, W), (H, W), lv.halo_y, lv.halo_x, "bilinear", "clamp",
-            _OFFSET_RANK_TR, _OFFSET_RANK_TC, params.error_sampler_precision,
-            offsets=_rank_offsets(int(d), probes),
-        ) is not None
-        for d in lv.offsets
-    )
 
 
 def _propagation_and_search(
@@ -569,25 +546,22 @@ def _level_step(src, flow, level: int, sizes, params: FlowParams,
 
 # CUDA graphs of the pyramid levels. A level's work is several hundred
 # small tensor operations on shapes fixed by the rig and preset, and no
-# host decision inside it depends on data, so each level that launches no
-# hand-written kernel is captured once per key and replayed: the same
-# kernels in the same order, a fraction of the host's launch time. The
-# hinted search in front of the coarsest level is a graph of its own.
+# host decision inside it depends on data, so each level is captured once
+# per key and replayed: the same kernels in the same order, a fraction of
+# the host's launch time. The hinted search in front of the coarsest level
+# is a graph of its own. A hand kernel's launch inside a level (K3's
+# offset ranking) is captured with it and counted at each replay.
 
 
 def _graphable(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-@lru_cache(maxsize=1024)
-def _level_graphed(device: torch.device, B: int, h: int, w: int,
-                   params: FlowParams, is_finest: bool) -> bool:
-    """Whether a level runs as a CUDA graph: on a CUDA device, where it
-    launches no hand-written kernel. A level that launches K3 stays eager
-    because a replay would skip the Python of its calls: the launch call
-    (``cuda_build.launch``, which counts each launch) and the per-call hook
-    (``fused_window._record``) must see every call."""
-    return _graphable(device) and not _level_uses_kernel(B, h, w, params, is_finest)
+def _graphed(device: torch.device) -> bool:
+    """Whether a call runs its levels as CUDA graphs, read at every call:
+    on a CUDA device, while the per-call hook has no reader (a replay
+    makes no call of it)."""
+    return _graphable(device) and not record_open()
 
 
 def _graph_key(device: torch.device, site: str, params: FlowParams,
@@ -602,8 +576,8 @@ class _LevelGraph(NamedTuple):
     """A captured level or search."""
 
     graph: object  # torch.cuda.CUDAGraph (anything with replay())
+    launches: tuple  # its hand kernels' launches, (kernel, site) in order
     flow_in: torch.Tensor | None  # the incoming flow the graph reads
-    copy_in: bool  # whether each call copies its incoming flow to flow_in
     out: torch.Tensor  # the flow the graph writes
 
 
@@ -694,11 +668,12 @@ def _device_graphs(device: torch.device) -> _DeviceGraphs:
 
 def _capture(step, out: torch.Tensor, dg: _DeviceGraphs):
     """Warm ``step`` up eagerly on the device's side stream (it fills the
-    caches and the library handles that capture may not create; its
-    result is dropped, since ``out`` may overlap its input), then capture
-    ``out.copy_(step())`` into a CUDA graph on that stream, into the
-    device's pool, pinning the cached device tensors it reads. Returns
-    the graph."""
+    caches and the library handles that capture may not create, and its
+    hand kernels' launches count as they run; its result is dropped, since
+    ``out`` may overlap its input), then capture ``out.copy_(step())``
+    into a CUDA graph on that stream, into the device's pool, pinning the
+    cached device tensors it reads. Returns the graph and the hand
+    kernels' launches it holds (``cuda_build.held``), uncounted."""
     if dg.stream is None:
         dg.stream = torch.cuda.Stream(dg.device)
         dg.pool = torch.cuda.graph_pool_handle()
@@ -710,13 +685,14 @@ def _capture(step, out: torch.Tensor, dg: _DeviceGraphs):
         dg.stream.wait_stream(current)
         with torch.cuda.stream(dg.stream):
             step()
-            graph.capture_begin(dg.pool, capture_error_mode="thread_local")
-            try:
-                out.copy_(step())
-            finally:
-                graph.capture_end()
+            with cuda_build.held() as launches:
+                graph.capture_begin(dg.pool, capture_error_mode="thread_local")
+                try:
+                    out.copy_(step())
+                finally:
+                    graph.capture_end()
         current.wait_stream(dg.stream)
-    return graph
+    return graph, tuple(launches)
 
 
 def _flow_view(flow_buf: torch.Tensor, size) -> torch.Tensor:
@@ -724,32 +700,26 @@ def _flow_view(flow_buf: torch.Tensor, size) -> torch.Tensor:
     return flow_buf.view(-1)[: B * 2 * size[0] * size[1]].view(B, 2, *size)
 
 
-def _run_graphed(dg: _DeviceGraphs, key: tuple, body, flow_buf, flow, out_size,
-                 prev: _LevelGraph | None = None) -> _LevelGraph:
-    """Replay graph ``key`` of ``body(flow_in)``, capturing it first where
-    the key is new: a level's body reads its incoming flow ``flow`` (None
-    at a start from zero), the search's none. Returns the graph, whose
-    ``out`` (a view of ``flow_buf`` at ``out_size``) holds the result;
-    ``flow`` read from ``prev.out`` is read in place."""
+def _run_graphed(dg: _DeviceGraphs, key: tuple, body, flow_buf, flow, out_size):
+    """Replay graph ``key`` of ``body(flow)``, capturing it first where the
+    key is new: a level's body reads its incoming flow ``flow``, the
+    previous graph's output read in place (None at a start from zero), the
+    search's none. Each replay counts the hand kernels' launches the graph
+    holds, in capture order, in the caller's span. Returns the graph's
+    output, a view of ``flow_buf`` at ``out_size``."""
     rec = dg.graphs.get(key)
     if rec is None:
         count("flow.graph.capture")
-        if flow is None or (prev is not None and flow is prev.out):
-            flow_in, copy_in = flow, False
-        else:
-            flow_in, copy_in = _flow_view(flow_buf, flow.shape[-2:]), True
-            flow_in.copy_(flow)
         out = _flow_view(flow_buf, out_size)
-        graph = _capture(lambda: body(flow_in), out, dg)
-        rec = dg.graphs[key] = _LevelGraph(graph, flow_in, copy_in, out)
+        graph, launches = _capture(lambda: body(flow), out, dg)
+        rec = dg.graphs[key] = _LevelGraph(graph, launches, flow, out)
     else:
         count("flow.graph.replay")
-        if rec.copy_in:
-            rec.flow_in.copy_(flow)
-        elif flow is not rec.flow_in:
+        if flow is not rec.flow_in:
             raise RuntimeError(f"flow graph {key} was captured on another input")
     rec.graph.replay()
-    return rec
+    cuda_build.count_replayed(rec.launches)
+    return rec.out
 
 
 def compute_flow(
@@ -772,16 +742,17 @@ def compute_flow(
     ``site`` labels the sampler kernel's launches. Returns (B, 2, H, W)
     pixels at input resolution.
 
-    On a CUDA device each pyramid level that launches no hand-written
-    kernel (:func:`_level_graphed`) runs as a CUDA graph, captured at the
-    first call with its key (:func:`_graph_key`) and replayed after: the
-    prologue's results and ``hint`` are copied into the device's
+    On a CUDA device each pyramid level runs as a CUDA graph, captured at
+    the first call with its key (:func:`_graph_key`) and replayed after:
+    the prologue's results and ``hint`` are copied into the device's
     persistent buffers, the graphs read those and each other's outputs,
     the hinted search runs as a graph of its own (the coarsest level's key
-    and ``"search"``) in front of the coarsest level's graph where that
-    level is graphed, and the final resize and blur read the finest
-    level's output into a fresh tensor. On the CPU everything runs
-    eagerly.
+    and ``"search"``) in front of the coarsest level's graph, and the
+    final resize and blur read the finest level's output into a fresh
+    tensor. A replay makes no call of the per-call hook
+    (``fused_window._record``), so while the hook has a reader the call
+    runs eagerly (:func:`_graphed`), as it does on the CPU; it computes
+    the same flow either way.
 
     Traced as a span ``flow`` (``site``, ``batch``) holding one
     ``flow.level`` span per pyramid level (``level``, 0 the finest;
@@ -815,11 +786,9 @@ def compute_flow(
         src = (I0, I1, alpha0, alpha1) + ((prev_flow_d, motion) if use_temporal else ())
 
         sizes = _pyramid_sizes(dh, dw, params)
-        graphed = [_level_graphed(dev, B, lh, lw, params, level == 0)
-                   for level, (lh, lw) in enumerate(sizes)]
         search = hint if params.search_max_percentage > 0 else None
-        if not any(graphed):
-            flow = _levels(src, None, search, sizes, graphed, params, use_temporal, site)
+        if not _graphed(dev):
+            flow = _levels(src, None, search, sizes, params, use_temporal, site)
             return _final_flow(flow, H, W, params)
         with _device_graphs(dev).use() as dg:
             static, flow_buf, hint_buf = dg.layout(B, dh, dw, use_temporal)
@@ -827,21 +796,22 @@ def compute_flow(
                 buf.copy_(t)
             if search is not None:
                 hint_buf.copy_(search)
-            flow = _levels(src, (dg, static, flow_buf, hint_buf), search, sizes, graphed,
+            flow = _levels(src, (dg, static, flow_buf, hint_buf), search, sizes,
                            params, use_temporal, site)
             return _final_flow(flow, H, W, params)
 
 
-def _levels(src, graphs, search, sizes, graphed, params: FlowParams,
+def _levels(src, graphs, search, sizes, params: FlowParams,
             use_temporal: bool, site: str):
-    """The pyramid from the coarsest level to the finest: eager levels on
-    ``src``, graphed ones through ``graphs`` = (the device's graphs, the
-    loaded copies of ``src``, the flow buffer, the loaded hints)."""
+    """The pyramid from the coarsest level to the finest: eagerly on
+    ``src`` where ``graphs`` is None, else graphed through ``graphs`` =
+    (the device's graphs, the loaded copies of ``src``, the flow buffer,
+    the loaded hints)."""
     B = src[0].shape[0]
-    flow, prev = None, None
+    g = graphs is not None
+    flow = None
     for level in range(len(sizes) - 1, -1, -1):
         lh, lw = sizes[level]
-        g = graphed[level]
         with span("flow.level", level=level, finest=level == 0, h=lh, w=lw, graphed=g):
             key = None
             if g:
@@ -855,21 +825,18 @@ def _levels(src, graphs, search, sizes, graphed, params: FlowParams,
                     if g:
                         body = partial(_search_step, static, level=level, sizes=sizes,
                                        params=params, hint=hint_buf)
-                        prev = _run_graphed(dg, key + ("search",), body, flow_buf, None,
+                        flow = _run_graphed(dg, key + ("search",), body, flow_buf, None,
                                             (lh, lw))
-                        flow = prev.out
                     else:
                         count("flow.graph.eager")
                         flow = _search_step(src, None, level, sizes, params, search)
             if not g:
                 count("flow.graph.eager")
                 flow = _level_step(src, flow, level, sizes, params, use_temporal, site)
-                prev = None
                 continue
             body = partial(_level_step, static, level=level, sizes=sizes, params=params,
                            use_temporal=use_temporal, site=site)
-            prev = _run_graphed(dg, key, body, flow_buf, flow, sizes[max(level - 1, 0)], prev)
-            flow = prev.out
+            flow = _run_graphed(dg, key, body, flow_buf, flow, sizes[max(level - 1, 0)])
     return flow
 
 

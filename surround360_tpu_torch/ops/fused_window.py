@@ -29,7 +29,9 @@ caller's label, so a run can show which call sites went through which
 kernel. :func:`recorded` keeps per (kernel, site, offsets) the inputs and
 output of the call with the most samples and the number of calls
 (launches on the card, twin calls on the CPU), for later comparison with
-the twin.
+the twin. Every call passes through the per-call hook :func:`_record`,
+which a caller may wrap; a CUDA graph's replay makes no call, so
+:func:`record_open` tells work that could be replayed to run eagerly.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ __all__ = [
     "window_gather",
     "axis_taps",
     "recorded",
+    "record_open",
 ]
 
 # kernel name -> CUDA source under csrc/ (K2 and K3 share one source)
@@ -226,6 +229,23 @@ def _record(kernel, site, args, kw, out):
             _RECORD[key] = (args, kw, out, n)
         else:
             _RECORD[key] = _RECORD[key][:3] + (n,)
+
+
+_OWN_RECORD = _record  # the hook a caller's own may replace
+
+
+def record_open() -> bool:
+    """Whether the per-call hook has a reader: :func:`recorded` is open,
+    or a caller has put a hook of its own in place of :func:`_record`.
+
+    While it is true, work that could be replayed from a CUDA graph runs
+    eagerly instead (a replay makes no call of the hook), so a reader
+    sees the calls of an eager run. A reader may take numbers from those
+    calls (their bytes, say) for frames that ran as graphs; that holds
+    only while the eager run makes, per (kernel, site, offsets), the same
+    calls that the graphs captured and replay, which
+    ``tests/test_torch_flow_graphs.py`` checks on the CPU and the card."""
+    return _RECORD is not None or _record is not _OWN_RECORD
 
 
 def fused_window_sample(

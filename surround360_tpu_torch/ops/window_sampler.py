@@ -37,7 +37,7 @@ from .fused_window import (
     fused_window_sample_folded,
     window_gather,
 )
-from .resize import device_constant
+from .resize import device_constant, on_device
 
 __all__ = [
     "WindowPlan",
@@ -335,6 +335,16 @@ def _tile_coords(v, p: WindowPlan):
     return flat.reshape((p.nty * p.ntx,) + lead + (p.tr * p.tc,))
 
 
+def _tile_origins(nty: int, ntx: int, tr: int, tc: int, tight: bool) -> np.ndarray:
+    """The fused route's per-tile window origins, int32 (2, T): rows
+    ``ty * tr``, columns ``tx * tc``, floored to a multiple of 128 unless
+    ``tight``. Uploaded once per device through ``resize.on_device``: work
+    captured into a CUDA graph may not copy from pageable host memory."""
+    tiles = np.arange(nty * ntx)
+    sx = (tiles % ntx) * tc
+    return np.stack([(tiles // ntx) * tr, sx if tight else sx // 128 * 128]).astype(np.int32)
+
+
 def make_window_sampler(
     img, out_hw, halo_y: int, halo_x: int,
     interpolation: str = "bilinear", border: str = "clamp",
@@ -402,19 +412,15 @@ def make_window_sampler(
     bh_k, bw_k = _kernel_extents(p, my, mx)
     pad_y_t, pad_x_t = p.pad_y + my, p.pad_x + mx
     T = p.nty * p.ntx
-    tiles = np.arange(T)
-    sy = (tiles // p.ntx) * p.tr
-    sx_raw = (tiles % p.ntx) * p.tc
-    tight = offsets is None and bool((sx_raw % 128).any())
-    sx = sx_raw if tight else (sx_raw // 128) * 128
+    # tile columns off the 128 grid take exact x origins (tight-x mode)
+    tight = offsets is None and p.ntx > 1 and p.tc % 128 != 0
     pady2 = max(0, (p.nty - 1) * p.tr + bh_k - (H + pad_y_t))
-    padx2 = max(0, int((sx // 128 * 128).max()) + bw_k - (W + pad_x_t))
+    padx2 = max(0, (p.ntx - 1) * p.tc // 128 * 128 + bw_k - (W + pad_x_t))
     # offsets read the margin around the base window: edge-replicate for
     # "clamp" (tap-clamp semantics), zeros otherwise
     mode = "replicate" if (offsets and border == "clamp") else "constant"
     padded = F.pad(img.float(), (pad_x_t, padx2, pad_y_t, pady2), mode=mode)
-    sy = torch.from_numpy(sy.astype(np.int32)).to(img.device)
-    sx = torch.from_numpy(sx.astype(np.int32)).to(img.device)
+    sy, sx = on_device(_tile_origins, img.device, p.nty, p.ntx, p.tr, p.tc, tight)
     Pt = p.tr * p.tc
     O = 1 if offsets is None else len(offsets)
 

@@ -57,7 +57,6 @@ def _chain(compute_flow, params, frames, hints):
 @pytest.mark.parametrize("hints", list(HINTS), ids=list(HINTS))
 @pytest.mark.parametrize("frames", [1, 3], ids=["no_prior", "chain3"])
 def test_search_flow_equals_reference(hints, frames):
-    TPF._level_graphed.cache_clear()
     pair = _frames(11, frames, 3, 56, 88)
     got = _chain(TPF.compute_flow, TPF.make_flow_params(PRESET), pair, HINTS[hints])
     want = _chain(RPF.compute_flow, RPF.make_flow_params(PRESET), pair, HINTS[hints])
