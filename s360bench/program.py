@@ -41,10 +41,11 @@ class Program:
     def next(self, side, top, bottom, state):
         return self._next(side, top, bottom, state)
 
-    def isp(self, raw, cam: int, kw: dict):
-        cfg = self._isp_cfgs.get(cam)
+    def isp(self, raw, kw: dict):
+        key = tuple(sorted(kw.items()))  # a camera's ISP settings differ by seed
+        cfg = self._isp_cfgs.get(key)
         if cfg is None:
-            cfg = self._isp_cfgs[cam] = self._isp_config(**kw)
+            cfg = self._isp_cfgs[key] = self._isp_config(**kw)
         return self._isp(raw, cfg)
 
 

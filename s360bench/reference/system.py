@@ -31,9 +31,10 @@ class Reference:
         math_util.ALLOW_TF32 = self.tf32
         return render_frame(self.ctx, side, top, bottom, state=state, use_temporal=True)
 
-    def isp(self, raw, cam: int, kw: dict):
+    def isp(self, raw, kw: dict):
         math_util.ALLOW_TF32 = self.tf32
-        cfg = self._isp_cfgs.get(cam)
+        key = tuple(sorted(kw.items()))  # a camera's ISP settings differ by seed
+        cfg = self._isp_cfgs.get(key)
         if cfg is None:
-            cfg = self._isp_cfgs[cam] = IspConfig(**kw)
+            cfg = self._isp_cfgs[key] = IspConfig(**kw)
         return isp_process(raw, cfg)

@@ -10,14 +10,17 @@ mix (``traffic/<mix>.json``, read by ``feed.py``), its per-layer metrics
 
 1. loads the program (its CUDA kernels build into the checkout at first
    use) and makes the seed's frames on the device (``feed.py``);
-2. warms up: frame 0 without a prior, then one temporal frame;
+2. warms up: frame 0 without a prior, then one frame as the window
+   renders them;
 3. renders one video stream in a closed loop for ``--seconds``: each frame
    is fed (8-bit frames converted as the CLI reads them; raw footage
    uploaded and put through the ISP per camera, as ``unpack`` does),
-   rendered from the previous frame's temporal state, quantized to the
-   8-bit stereo equirect and copied to pinned host memory; a frame is
-   launched once the previous frame's launches are issued, and the host
-   then waits for the previous frame's delivery (one frame in flight);
+   rendered from the previous frame's temporal state (in a mix with
+   ``"prior": false``, every frame without a prior, as frame 0 is),
+   quantized to the 8-bit stereo equirect and copied to pinned host
+   memory; a frame is launched once the previous frame's launches are
+   issued, and the host then waits for the previous frame's delivery (one
+   frame in flight);
 4. with ``--trace 1``, times two frames' host enqueue, profiles three
    frames, and replays them to count their kernels' bytes;
 5. checks frames against the plain reference (``check.py``) and prints
@@ -139,7 +142,7 @@ def span(name: str):
 class Stream:
     """A system's frames of one feed: inputs, render, delivery."""
 
-    def __init__(self, system, feed, rig, device):
+    def __init__(self, system, feed, rig, device, prior: bool = True):
         import torch
 
         self.system, self.feed, self.device = system, feed, torch.device(device)
@@ -147,6 +150,7 @@ class Stream:
         self.top, self.bottom = rig.top_camera_index, rig.bottom_camera_index
         self.used = self.side + [self.top, self.bottom]
         self.cuda = self.device.type == "cuda"
+        self.prior = prior  # False: every frame rendered as frame 0 is
         self.bufs: list = []
         self.enqueue_s: list = []
 
@@ -167,15 +171,21 @@ class Stream:
             with span("s360bench.feed"):
                 raw = feed.pool[i].to(self.device, non_blocking=True).float() / 65535.0
             with span("s360bench.isp"):
-                rgb = [system.isp(raw[c], c, feed.isp[c]) for c in range(feed.cameras)]
+                rgb = [system.isp(raw[c], feed.isp[c]) for c in range(feed.cameras)]
                 u8 = quantize8(torch.stack([rgb[c] for c in self.used]))
                 rgba = to_rgba(u8.float() / 255.0)
         n = len(self.side)
         return rgba[:n], rgba[n], rgba[n + 1]
 
+    def given(self, state):
+        """The state a frame is rendered from after a frame whose new
+        state is ``state``: that state, or None in a mix without the
+        prior."""
+        return state if self.prior else None
+
     def render(self, k: int, state):
-        """Feed and render frame k (frame 0 without a prior when ``state``
-        is None). Returns (outputs, new state)."""
+        """Feed and render frame k (without a prior when ``state`` is
+        None). Returns (outputs, new state)."""
         side, top, bottom = self.inputs(k)
         with span("s360bench.render"):
             t = time.perf_counter()
@@ -222,9 +232,12 @@ class Stream:
 
 def to_host(state: dict, device) -> dict:
     """A copy of a finished temporal state in host memory, made on a side
-    stream so that it waits for none of the frames queued behind it."""
+    stream so that it waits for none of the frames queued behind it (None
+    for None)."""
     import torch
 
+    if state is None:
+        return None
     if torch.device(device).type != "cuda":
         return {k: v.clone() for k, v in state.items()}
     side = torch.cuda.Stream(device)
@@ -242,10 +255,12 @@ def _sync(device):
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
-             make_system=None) -> dict:
+             make_system=None, reference=None) -> dict:
     """One run of ``cell``. ``make_system(config, device)`` builds the
-    system under test (the program by default). Returns the result dict
-    (without its ``device`` entry's name) and prints nothing on stdout."""
+    system under test (the program by default); ``reference`` is the
+    check's reference (made by the check when None). Returns the result
+    dict (without its ``device`` entry's name) and prints nothing on
+    stdout."""
     import numpy as np
     import torch
 
@@ -266,14 +281,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     if list(feed_rig.ids) != list(system.rig.ids):
         raise RuntimeError("the program's rig is not the configuration's")
     feed = Feed(cell.config, cell.traffic, seed, feed_rig, dev)
-    stream = Stream(system, feed, feed_rig, dev)
+    stream = Stream(system, feed, feed_rig, dev, prior=bool(cell.traffic.get("prior", True)))
     rng = np.random.default_rng([seed, 2])
 
-    # warm-up: frame 0 without a prior, then one temporal frame
+    # warm-up: frame 0 without a prior, then one frame as the window's
     out0, st0 = stream.render(0, None)
     frame0 = stream.wait(stream.deliver(0, out0), keep=True)
     del out0
-    out1, st1 = stream.render(1, st0)
+    out1, st1 = stream.render(1, stream.given(st0))
     stream.wait(stream.deliver(1, out1))
     del out1
     _sync(dev)
@@ -294,7 +309,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         t_start = time.perf_counter()
         deadline = t_start + seconds
         while time.perf_counter() < deadline:
-            out, new = stream.render(k, state)
+            given = stream.given(state)
+            out, new = stream.render(k, given)
             handle = stream.deliver(k, out)
             del out
             if pending is not None:
@@ -304,9 +320,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
                     checks.append((early, to_host(early_in, dev), to_host(early_out, dev), kept))
                     early_in = early_out = None
             if k == early:
-                early_in, early_out = state, new
+                early_in, early_out = given, new
             pending = (k, handle)
-            prev, state = state, new
+            prev, state = given, new
             k += 1
         last = stream.wait(pending[1], keep=True)
         frames += 1
@@ -335,9 +351,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.empty_cache()
     from .check import judge
 
-    numbers, failed = judge(cell, stream, checks, dev)
+    numbers, failed, readings = judge(cell, stream, checks, dev, reference)
     return dict(metrics=result, peak=peak, attempted=attempted, failed=failed,
-                numbers=numbers, data=data)
+                numbers=numbers, readings=readings, data=data)
 
 
 def _traced_window(stream, state, k, checks, dev):
@@ -352,7 +368,7 @@ def _traced_window(stream, state, k, checks, dev):
     from .trace import read_chrome_trace
 
     for _ in range(HOST_FRAMES):
-        out, state = stream.render(k, state)
+        out, state = stream.render(k, stream.given(state))
         stream.wait(stream.deliver(k, out))
         k += 1
     host_s = list(stream.enqueue_s)
@@ -365,11 +381,12 @@ def _traced_window(stream, state, k, checks, dev):
         with span("s360bench.window"):
             pending = None
             for _ in range(TRACE_FRAMES):
-                out, new = stream.render(k, state)
+                given = stream.given(state)
+                out, new = stream.render(k, given)
                 handle = stream.deliver(k, out)
                 if pending is not None:
                     stream.wait(pending)
-                pending, prev, state = handle, state, new
+                pending, prev, state = handle, given, new
                 k += 1
             last = stream.wait(pending, keep=True)
             _sync(dev)
@@ -388,7 +405,7 @@ def _traced_window(stream, state, k, checks, dev):
     with kernel_calls(calls):
         st = start_state
         for j in range(first, k):
-            out, st = stream.render(j, st)
+            out, st = stream.render(j, stream.given(st))
             del out
             for kernel, args, kw in calls:
                 totals[kernel] = totals.get(kernel, 0) + call_bytes(args, kw)

@@ -56,7 +56,17 @@ def test_cell_resolves(cell):
     for m in c.per_layer:
         assert m["moves"] in names
         assert callable(metric_reader(m["name"]))
-    assert set(c.limits) == {"start_inputs_rel", "chain_rms_levels", "chain_state_rel"}
+    # a frame without a prior is compared by its inputs and its ring's
+    # flows, and may be by its single pairs, its pole flows and the frame;
+    # chained frames, which only a mix with the prior has, by their own
+    # numbers
+    still = {"start_inputs_rel", "still_ring_flow_p50_px"}
+    optional = {"still_ring_pair_p25_px", "still_pole_flow_p25_px",
+                "still_anchored_rms_levels", "still_rms_levels"}
+    chain = {"chain_rms_levels", "chain_state_rel"}
+    assert still <= set(c.limits) <= still | optional | chain
+    prior = c.traffic.get("prior", True)
+    assert set(c.limits) & chain == (chain if prior else set())
     assert c.traffic == load_traffic(next(w["traffic"] for w in BENCH["workloads"]
                                           if w["name"] == cell))
 

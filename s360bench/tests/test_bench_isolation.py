@@ -25,6 +25,7 @@ def test_run_path_loads_no_jax():
         "import glob, os\n"
         "import s360bench.run as r, s360bench.program, s360bench.check, s360bench.trace\n"
         "import s360bench.bounds, s360bench.feed, s360bench.reference.system\n"
+        "import s360bench.faults, s360bench.readings\n"
         "import surround360_tpu_torch.render.panorama, surround360_tpu_torch.isp.pipeline\n"
         "import surround360_tpu_torch.ops.fused_window\n"
         "for f in glob.glob('s360bench/metrics/*.py'):\n"

@@ -35,4 +35,17 @@ def test_isp_agrees():
     feed = Feed(cell.config, cell.traffic, 5, ref.rig, "cpu")
     raw = feed.pool[1].float() / 65535.0
     for c in (0, 5, 16):
-        assert torch.equal(prog.isp(raw[c], c, feed.isp[c]), ref.isp(raw[c], c, feed.isp[c]))
+        assert torch.equal(prog.isp(raw[c], feed.isp[c]), ref.isp(raw[c], feed.isp[c]))
+
+
+def test_isp_takes_each_seeds_settings():
+    """A system kept across seeds (as ``readings.py`` keeps it) puts each
+    seed's footage through that seed's ISP settings, as a fresh one does."""
+    cell = tiny_cell("raw_6k")
+    for make in (Program, Reference):
+        kept = make(cell.config, "cpu")
+        for seed in (5, 6):
+            feed = Feed(cell.config, cell.traffic, seed, kept.rig, "cpu")
+            raw = feed.pool[0][:1].float() / 65535.0
+            got = kept.isp(raw[0], feed.isp[0])
+        assert torch.equal(got, make(cell.config, "cpu").isp(raw[0], feed.isp[0]))
